@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device-time probes of the port's 12 kernels on one GPU.
+"""Device-time probes of the port's kernels on one GPU.
 
     python3 benchmarks/h100/probe.py [--launches N] [--flush-mb M]
 
-On the 3504x2336 benchmark image, for each op of the uint8 matrix:
+On the 3504x2336 benchmark image, for each op of the uint8 matrix and the
+fused pipeline:
 
 - ``profiler_us``: ``torch.profiler``'s mean device time of the op's CUDA
   kernel over N launches;
@@ -38,7 +39,8 @@ from dip_benchmark_tpu_torch.utils.image import (  # noqa: E402
 from dip_benchmark_tpu_torch.utils.testimage import resolve_image  # noqa: E402
 
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: covers the host's queueing
-KERNEL_NAMES = ("copy_u8", "point_u8", "grayscale_u8", "window_u8")
+KERNEL_NAMES = ("copy_u8", "point_u8", "grayscale_u8", "window_u8",
+                "pipeline_u8")
 
 
 def event_us(fn, n: int, flush: torch.Tensor | None = None) -> float:

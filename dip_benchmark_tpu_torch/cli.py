@@ -3,10 +3,12 @@
 The port of ``dip_benchmark_tpu/cli.py`` for the uint8 kernel path:
 positional infile and outdir, rounds as a flag or a third positional,
 default 10000, the device gate (exit 4 when no CUDA device is found), the
-device banner, then the 14-row table, the image dumps, an optional CSV row
-and an optional bit-exact check against the oracle.
+device banner, then the 14-row table (15 with ``--pipeline``), the image
+dumps, an optional CSV row and an optional bit-exact check against the
+oracle.
 
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N --verify
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N --pipeline
 
 Exit codes: 0 ok, 2 refused input (argparse errors, too small an image,
 a foreign CSV), 4 no device for --backend.
@@ -20,8 +22,7 @@ from argparse import ArgumentParser, ArgumentTypeError
 
 import numpy as np
 
-from dip_benchmark_tpu.harness import BenchmarkRunner
-
+from .harness import BenchmarkRunner
 from .runtime import DeviceGateError, describe_device, gate_backend
 from .session import BenchmarkSession
 from .utils.image import is_image_file, load_image
@@ -66,6 +67,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--verify", action="store_true",
                         help="Check every op output bit-exactly against the "
                              "oracle before reporting")
+    parser.add_argument("--pipeline", action="store_true",
+                        help="Add a 15th row: the fused "
+                             "grayscale+threshold+erosion+blur pipeline "
+                             "as a single kernel")
     parser.add_argument("--mem-rounds", type=int, default=None, metavar="N",
                         help="Round count override for the host-transfer "
                              "ops (Upload/Download) only; each row prints "
@@ -101,9 +106,9 @@ def main(argv: list[str] | None = None) -> int:
               else 10000)
     overrides = ({"Upload": args.mem_rounds, "Download": args.mem_rounds}
                  if args.mem_rounds is not None else None)
-    runner = BenchmarkRunner(session.operations(), rounds=rounds,
-                             stats=args.stats, warmup=args.warmup,
-                             rounds_override=overrides)
+    table = session.operations(include_pipeline=args.pipeline)
+    runner = BenchmarkRunner(table, rounds=rounds, stats=args.stats,
+                             warmup=args.warmup, rounds_override=overrides)
     runner.run(filename=filename, outdir=args.outdir,
                verify_against=image if args.verify else None,
                verify_ops=session.oracle_ops() if args.verify else None,

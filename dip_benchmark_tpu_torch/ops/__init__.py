@@ -1,18 +1,20 @@
-"""Op registry: the 12 on-device ops of the uint8 matrix, keyed by CSV column.
+"""Op registry: the 13 on-device ops of the uint8 model, keyed by CSV column.
 
-``OPS`` maps each column to a function of the planar padded
-``(C, Hp, pitch)`` tensor that returns a tensor of the same layout. The
-kernels read their geometry from the tensor, so unlike the JAX package's
-``build_ops(layout)`` nothing is built per layout, and since every op maps
-the layout to itself, ``utils.image.from_planar_padded`` crops any output
-to the uint8 HWC image the harness dumps and verifies.
+The 12 ops of the matrix and the fused pipeline ("Fused-Pipeline", the
+``--pipeline`` row, which has no CSV column), as the JAX package's
+``build_ops`` registers them. ``OPS`` maps each column to a function of
+the planar padded ``(C, Hp, pitch)`` tensor that returns a tensor of the
+same layout. The kernels read their geometry from the tensor, so unlike
+the JAX package's ``build_ops(layout)`` nothing is built per layout, and
+since every op maps the layout to itself, ``utils.image.from_planar_padded``
+crops any output to the uint8 HWC image the harness dumps and verifies.
 """
 
 from __future__ import annotations
 
-from dip_benchmark_tpu import spec
-
+from .. import spec
 from . import point, window
+from ..models import pipeline  # after point and window, which it imports
 
 # CSV column -> (wrapper, its plain PyTorch version, the op's arguments
 # after the planar tensor). OPS and PLAIN are both built from this one
@@ -42,6 +44,11 @@ TABLE = {
                             (spec.BLUR_1X5_INT, spec.BLUR_5X1_INT,
                              spec.BLUR_SEP5_SHIFT)),
     "Gaussian-Blur-3x3": (window.gaussian_blur_3x3, window.blur3x3_plain, ()),
+    # Looked up at call time: importing models.pipeline first imports this
+    # package while that module is still half-built.
+    "Fused-Pipeline": (lambda planar: pipeline.fused_pipeline(planar),
+                       lambda planar: pipeline.fused_pipeline_plain(planar),
+                       ()),
 }
 
 

@@ -18,18 +18,23 @@ class KernelLaunchError(RuntimeError):
     """A CUDA kernel launch was refused or failed."""
 
 
-def check_planar(planar: torch.Tensor, channels: int | None = None) -> None:
+def check_planar(planar: torch.Tensor, channels: int | None = None,
+                 batched: bool = False) -> None:
     """Raise unless ``planar`` is a contiguous uint8 ``(C, Hp, pitch)``
-    tensor whose pitch and base address suit 16-byte vector access."""
-    if planar.dtype != torch.uint8 or planar.dim() != 3:
-        raise ValueError(f"expected a (C, Hp, pitch) uint8 tensor, got "
-                         f"{planar.dtype} {tuple(planar.shape)}")
-    if channels is not None and planar.shape[0] != channels:
-        raise ValueError(f"expected {channels} planes, got {planar.shape[0]}")
+    tensor (or, with ``batched``, also a ``(B, C, Hp, pitch)`` stack)
+    whose pitch and base address suit 16-byte vector access."""
+    dims = (3, 4) if batched else (3,)
+    if planar.dtype != torch.uint8 or planar.dim() not in dims:
+        want = " or (B, C, Hp, pitch)" if batched else ""
+        raise ValueError(f"expected a (C, Hp, pitch){want} uint8 tensor, "
+                         f"got {planar.dtype} {tuple(planar.shape)}")
+    if channels is not None and planar.shape[-3] != channels:
+        raise ValueError(f"expected {channels} planes, got "
+                         f"{planar.shape[-3]}")
     if not planar.is_contiguous():
         raise ValueError("planar tensor must be contiguous")
     if planar.device.type == "cuda" and (
-            planar.shape[2] % 16 or planar.data_ptr() % 16):
+            planar.shape[-1] % 16 or planar.data_ptr() % 16):
         raise ValueError("the CUDA kernels need a pitch and a base address "
                          "that are multiples of 16 bytes")
 

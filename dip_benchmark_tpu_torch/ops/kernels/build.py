@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernel library.
 
-The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper (``sm_90a``),
+one compiler process per source, all started together, and linked into one
+shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``_build/<hash>/`` beside this file, keyed by a hash
 of the sources and the compiler flags, so a changed source rebuilds and an
 unchanged one loads at once. Building is set-up: it happens at the first
@@ -23,11 +24,12 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
-SOURCES = ("point.cu", "window.cu")
+SOURCES = ("point.cu", "window.cu", "pipeline.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdipkernels.so"
+BUILD_TIMEOUT_S = 900
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +46,7 @@ SIGNATURES = {
     "dip_blur3x3_u8": (_P, _P, _I, _I, _I, _P),
     "dip_conv_dense_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
     "dip_conv_sep_u8": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
+    "dip_pipeline_u8": (_P, _P, _I, _I, _I, _P),
 }
 
 
@@ -79,8 +82,30 @@ def library_path() -> str:
     return os.path.join(BUILD_ROOT, source_hash(), LIB_NAME)
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands at once; (exit code, output) of each. Every
+    process is waited for, or killed at the timeout, before this returns."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        results = []
+        for p in procs:
+            out = p.communicate(timeout=BUILD_TIMEOUT_S)[0]
+            results.append((p.returncode, out))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def build() -> str:
-    """Compile the library if it is not built yet; return its path."""
+    """Compile the library if it is not built yet; return its path. One
+    nvcc process per source, all started together, then one link."""
     global build_log
     path = library_path()
     if os.path.exists(path):
@@ -91,26 +116,31 @@ def build() -> str:
             f"no CUDA compiler: {nvcc!r} not found (set NVCC or CUDA_HOME)")
     out_dir = os.path.dirname(path)
     os.makedirs(out_dir, exist_ok=True)
-    # Compile to a private name, then rename: another process that loads
-    # the library never sees a half-written file.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        os.unlink(tmp)
-        raise KernelLibraryError(
-            f"cannot run the CUDA compiler {nvcc!r}: {e}") from e
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelLibraryError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{build_log}")
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                         os.path.join(CSRC, s)]
+                        for s, o in zip(SOURCES, objs)]
+        # Link to a private name, then rename: another process that loads
+        # the library never sees a half-written file.
+        tmp = os.path.join(work, LIB_NAME)
+        link_cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-shared", "-o", tmp, *objs]
+        log = []
+        try:
+            for cmds in (compile_cmds, [link_cmd]):
+                for cmd, (rc, out) in zip(cmds, _run_all(cmds)):
+                    log.append(f"$ {' '.join(cmd)}\n{out}")
+                    if rc != 0:
+                        build_log = "\n".join(log)
+                        raise KernelLibraryError(
+                            f"nvcc failed (exit {rc}): {' '.join(cmd)}\n"
+                            f"{out}")
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise KernelLibraryError(
+                f"cannot run the CUDA compiler {nvcc!r}: {e}") from e
+        build_log = "\n".join(log)
+        os.replace(tmp, path)
     return path
 
 

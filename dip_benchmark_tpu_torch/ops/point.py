@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from dip_benchmark_tpu import spec
+from .. import spec
 
 from . import kernels
 

@@ -19,7 +19,7 @@ import ctypes
 import numpy as np
 import torch
 
-from dip_benchmark_tpu import spec
+from .. import spec
 
 from . import kernels
 

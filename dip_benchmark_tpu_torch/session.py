@@ -1,4 +1,4 @@
-"""Benchmark session: device state and the 14-op table for one image.
+"""Benchmark session: device state and the op table for one image.
 
 The port of the uint8 kernel path of ``dip_benchmark_tpu/session.py``. It
 owns the three device-boundary crossings of the reference design: the
@@ -17,9 +17,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from dip_benchmark_tpu import native, oracle, spec
-from dip_benchmark_tpu.harness import Operation
-
+from . import oracle, spec
+from .harness import Operation
 from .ops import OPS, kernels
 from .runtime import synchronize
 from .utils.image import (check_uint8_hwc, from_planar_padded, make_layout,
@@ -27,8 +26,9 @@ from .utils.image import (check_uint8_hwc, from_planar_padded, make_layout,
 
 
 class BenchmarkSession:
-    """Builds the 14-op table over a host image on ``device``: the CUDA
-    kernels on a CUDA device, their plain PyTorch versions on the CPU."""
+    """Builds the 14-op table (15 rows with the pipeline) over a host
+    image on ``device``: the CUDA kernels on a CUDA device, their plain
+    PyTorch versions on the CPU."""
 
     verify_atol = 0  # the uint8 model is bit-exact
 
@@ -72,7 +72,7 @@ class BenchmarkSession:
             synchronize(self.device)
         return run
 
-    def operations(self) -> list[Operation]:
+    def operations(self, include_pipeline: bool = False) -> list[Operation]:
         ops: list[Operation] = []
         for desc, prefix, col in spec.OPERATION_MATRIX:
             if col == "Upload":
@@ -85,7 +85,20 @@ class BenchmarkSession:
                 ops.append(Operation(desc, prefix, col,
                                      self._make_run(OPS[col]),
                                      self._fetch_output))
+        if include_pipeline:
+            ops.append(self.pipeline_operation())
         return ops
+
+    def pipeline_operation(self) -> Operation:
+        """Extra benchmark row: the flagship fused pipeline (grayscale ->
+        threshold -> erosion 3x3 -> blur 3x3) as one kernel launch, against
+        four launches if chained from the op table. Not part of the
+        reference matrix, so it gets no CSV column (the CSV writer skips
+        it)."""
+        return Operation(
+            "Fused Pipeline (Grayscale+Threshold+Erosion+Blur)", "pipeline",
+            "Fused-Pipeline", self._make_run(OPS["Fused-Pipeline"]),
+            self._fetch_output)
 
     def _fetch_output(self) -> np.ndarray:
         return from_planar_padded(self._sample, self.layout)
@@ -95,6 +108,5 @@ class BenchmarkSession:
 
     @staticmethod
     def oracle_ops() -> dict:
-        """The golden ops for --verify: the native C++ oracle when it
-        builds, else the NumPy one (bit-identical, tested)."""
-        return native.image_ops() if native.available() else oracle.IMAGE_OPS
+        """The golden ops for --verify: the port's NumPy oracle."""
+        return oracle.IMAGE_OPS

@@ -1,8 +1,8 @@
-"""The port's device layout: a planar, mirror-padded uint8 image.
+"""Image I/O and the port's device layout: a planar, mirror-padded uint8 image.
 
-Image I/O and the input check stay in ``dip_benchmark_tpu.utils.image``,
-which is NumPy-only; this module re-exports them, so the rest of the port
-and its users take them from here.
+Image I/O and the input check are the port's own copies of
+``dip_benchmark_tpu/utils/image.py``'s: RGB uint8 HWC at the edges, cv2
+first (it matches the reference's JPEG decode) and PIL as the fallback.
 
 The layout keeps the reference's contract: planar ``(C, Hp, pitch)``
 uint8 with the spec's mirror border baked into ``pad`` halo rows and
@@ -15,17 +15,75 @@ bytes so 16-byte vector loads cover every row and plane.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from dip_benchmark_tpu import spec
-from dip_benchmark_tpu.utils.image import (  # noqa: F401
-    check_uint8_hwc, is_image_file, load_image, save_image)
+from .. import spec
+
+try:  # cv2 matches the reference's JPEG decode exactly (opencv/benchmark.py:14)
+    import cv2 as _cv2
+except ImportError:  # pragma: no cover
+    _cv2 = None
 
 DEFAULT_HALO = 2   # the largest kernel radius of the op matrix (5x5)
 PITCH_ALIGN = 16   # bytes: one uint4 vector
+
+
+# -- image I/O -------------------------------------------------------------
+
+def load_image(path: str) -> np.ndarray:
+    """Load an image file as uint8 RGB HWC."""
+    if _cv2 is not None:
+        bgr = _cv2.imread(path, _cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise ValueError(f"Not a valid image file: {path}")
+        return np.ascontiguousarray(bgr[..., ::-1])
+    from PIL import Image  # pragma: no cover
+    return np.asarray(Image.open(path).convert("RGB"))  # pragma: no cover
+
+
+def save_image(path: str, image: np.ndarray) -> None:
+    """Save a uint8 RGB HWC image."""
+    check_uint8_hwc(image)
+    if _cv2 is not None:
+        ok = _cv2.imwrite(path, np.ascontiguousarray(image[..., ::-1]))
+        if not ok:
+            raise IOError(f"Failed to write {path}")
+        return
+    from PIL import Image  # pragma: no cover
+    Image.fromarray(image).save(path)  # pragma: no cover
+
+
+def check_uint8_hwc(image: np.ndarray) -> None:
+    """Input contract of the session and the batch tool, as a ValueError
+    (not assert: python -O strips asserts)."""
+    if (getattr(image, "dtype", None) != np.uint8
+            or getattr(image, "ndim", 0) != 3
+            or image.shape[2] != 3):
+        raise ValueError(
+            f"expected a uint8 HWC RGB image array (3 channels), got "
+            f"dtype={getattr(image, 'dtype', type(image))} "
+            f"shape={getattr(image, 'shape', '?')}")
+
+
+def is_image_file(path: str) -> bool:
+    if not os.path.isfile(path):
+        return False
+    if _cv2 is not None:
+        return _cv2.haveImageReader(path)
+    try:  # pragma: no cover
+        from PIL import Image
+        with Image.open(path) as im:
+            im.verify()
+        return True
+    except (OSError, SyntaxError):
+        return False
+
+
+# -- planar layout ---------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -75,7 +133,7 @@ def mirror_rows(layout: PlanarLayout) -> np.ndarray:
 
 def mirror_cols(layout: PlanarLayout) -> np.ndarray:
     """Source image column of every padded column, slack included (the
-    rule of ``dip_benchmark_tpu.utils.image.mirror_col_index``)."""
+    clamped mirror rule of the JAX package's ``mirror_col_index``)."""
     return np.clip(spec.mirror_index(
         np.arange(layout.pitch) - layout.pad, layout.width),
         0, layout.width - 1)
@@ -91,12 +149,27 @@ def to_planar_padded(image: np.ndarray, layout: PlanarLayout) -> torch.Tensor:
         np.ascontiguousarray(planar[:, ys[:, None], xs[None, :]]))
 
 
+def stack_planar_padded(images: np.ndarray, layout: PlanarLayout,
+                        pin_memory: bool = False) -> torch.Tensor:
+    """``(B, H, W, C)`` uint8 -> ``(B, C, Hp, pitch)`` uint8 CPU tensor,
+    each image baked as ``to_planar_padded`` bakes it. ``pin_memory``
+    allocates the stack in page-locked memory, for an asynchronous copy
+    to the card."""
+    stack = torch.empty((len(images),) + layout.shape, dtype=torch.uint8,
+                        pin_memory=pin_memory)
+    dst = stack.numpy()
+    for i, image in enumerate(images):
+        dst[i] = to_planar_padded(image, layout).numpy()
+    return stack
+
+
 def from_planar_padded(planar: torch.Tensor,
                        layout: PlanarLayout) -> np.ndarray:
-    """``(C, Hp, pitch)`` on any device -> HWC uint8 host array, cropped."""
+    """``(C, Hp, pitch)`` or ``(B, C, Hp, pitch)`` on any device -> HWC or
+    ``(B, H, W, C)`` uint8 host array, cropped."""
     p = layout.pad
-    valid = planar[:, p:p + layout.height, p:p + layout.width]
-    return valid.permute(1, 2, 0).contiguous().cpu().numpy()
+    valid = planar[..., p:p + layout.height, p:p + layout.width]
+    return valid.movedim(-3, -1).contiguous().cpu().numpy()
 
 
 def from_jax_planar(arr: np.ndarray, jax_layout) -> torch.Tensor:
@@ -104,19 +177,23 @@ def from_jax_planar(arr: np.ndarray, jax_layout) -> torch.Tensor:
 
     ``arr`` is a ``(C, Hp, Wp)`` array from
     ``dip_benchmark_tpu.utils.image.to_planar_padded`` (or a JAX op's
-    output) on ``jax_layout``. Both layouts bake the same mirror and slack
-    rules relative to the image origin, so the port's buffer is the window
-    of ``pad`` rows and columns around the image, ``pitch`` columns wide.
+    output) on ``jax_layout``, or a ``(B, C, Hp, Wp)`` stack of them.
+    Both layouts bake the same mirror and slack rules relative to the
+    image origin, so the port's buffer is the window of ``pad`` rows and
+    columns around the image, ``pitch`` columns wide.
     """
     layout = make_layout(jax_layout.height, jax_layout.width,
                          jax_layout.channels)
     y0 = jax_layout.pad_y - layout.pad
     x0 = jax_layout.pad_x - layout.pad
-    c, hp, wp = arr.shape
+    if arr.ndim not in (3, 4):
+        raise ValueError(f"expected a (C, Hp, Wp) or (B, C, Hp, Wp) array, "
+                         f"got shape {arr.shape}")
+    c, hp, wp = arr.shape[-3:]
     if (c != layout.channels or y0 < 0 or x0 < 0
             or y0 + layout.padded_height > hp or x0 + layout.pitch > wp):
         raise ValueError(
             f"JAX planar {arr.shape} on {jax_layout} cannot hold the "
             f"port's {layout.shape} window")
     return torch.from_numpy(np.ascontiguousarray(
-        arr[:, y0:y0 + layout.padded_height, x0:x0 + layout.pitch]))
+        arr[..., y0:y0 + layout.padded_height, x0:x0 + layout.pitch]))

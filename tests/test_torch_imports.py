@@ -1,5 +1,5 @@
-"""The PyTorch port imports without JAX or Triton, builds its kernels or
-raises, and never reaches a kernel from a CPU tensor."""
+"""The PyTorch port imports without JAX, the JAX package or Triton, builds
+its kernels or raises, and never reaches a kernel from a CPU tensor."""
 
 import ast
 import os
@@ -18,32 +18,62 @@ from dip_benchmark_tpu_torch.utils.image import (make_layout, save_image,
                                                  to_planar_padded)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "dip_benchmark_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "dip_benchmark_tpu", "triton")
 
 
-def test_port_imports_neither_jax_nor_triton():
-    # A fresh interpreter: this one has JAX loaded by the conftest.
-    code = ("import sys\n"
-            "import dip_benchmark_tpu_torch, dip_benchmark_tpu_torch.cli\n"
-            "import dip_benchmark_tpu_torch.session, dip_benchmark_tpu_torch.ops\n"
-            "bad = [m for m in ('jax', 'triton') if m in sys.modules]\n"
-            "assert not bad, bad\n")
+def loaded_after(imports: str) -> list[str]:
+    """The FORBIDDEN modules in a fresh interpreter's sys.modules after
+    ``imports`` (this interpreter has JAX loaded by the conftest)."""
+    code = (f"import sys\n{imports}\n"
+            f"print([m for m in {FORBIDDEN!r} if m in sys.modules])\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    return ast.literal_eval(proc.stdout.strip().splitlines()[-1])
 
 
-def test_chip_smoke_imports_only_the_port():
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+def imported_modules(path: str) -> list[str]:
+    """Absolute module names a source file imports (relative imports
+    stay inside its package and are left out)."""
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]
     names += [n.module for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom) and n.module]
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+    return names
+
+
+def test_port_imports_neither_jax_nor_triton():
+    assert loaded_after(
+        "import dip_benchmark_tpu_torch, dip_benchmark_tpu_torch.cli\n"
+        "import dip_benchmark_tpu_torch.session, dip_benchmark_tpu_torch.ops\n"
+        "import dip_benchmark_tpu_torch.harness\n"
+        "import dip_benchmark_tpu_torch.oracle\n"
+        "import dip_benchmark_tpu_torch.models.batch\n"
+        "import dip_benchmark_tpu_torch.models.pipeline\n"
+        "import dip_benchmark_tpu_torch.utils.testimage") == []
+
+
+def test_no_port_file_imports_the_jax_package():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
+             if f.endswith(".py")]
+    assert len(files) >= 20
+    bad = {os.path.relpath(f, REPO): m for f in files
+           for m in imported_modules(f) if m.split(".")[0] in FORBIDDEN}
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_only_the_port():
+    names = imported_modules(os.path.join(REPO, "chip_smoke.py"))
     ours = [m for m in names if m.split(".")[0].startswith("dip_benchmark")]
     assert ours and all(m.split(".")[0] == "dip_benchmark_tpu_torch"
                         for m in ours), ours
-    assert not [m for m in names if m.split(".")[0] in ("jax", "triton")]
+    assert not [m for m in names if m.split(".")[0] in FORBIDDEN]
+    # And what it imports, imported: the port loads none of them either.
+    assert loaded_after("import chip_smoke") == []
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -70,6 +100,50 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(build.KernelLibraryError, match="nvcc"):
         build.load()
     assert build._lib is None
+
+
+def fake_nvcc(tmp_path, fail_on: str = "") -> str:
+    """A stand-in compiler that logs its arguments and writes its -o file,
+    or fails on a source whose name ends in ``fail_on``."""
+    script = tmp_path / "nvcc"
+    script.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        f"with open({str(tmp_path / 'calls.txt')!r}, 'a') as f:\n"
+        "    f.write(' '.join(args) + '\\n')\n"
+        f"if {fail_on!r} and any(a.endswith({fail_on!r}) for a in args):\n"
+        "    print('error: broken source')\n"
+        "    sys.exit(1)\n"
+        "open(args[args.index('-o') + 1], 'w').write('x')\n")
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    monkeypatch.setenv("NVCC", fake_nvcc(tmp_path))
+    monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path / "_build"))
+    path = build.build()
+    assert path == build.library_path() and os.path.exists(path)
+    calls = (tmp_path / "calls.txt").read_text().splitlines()
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(c.split()[-1].rsplit("/", 1)[1] for c in compiles) == \
+        sorted(build.SOURCES)
+    assert all(" -c " in c and "sm_90a" in c for c in compiles)
+    assert "-shared" in link.split() and link.count(".o") == 3
+    assert build.build() == path  # built once: the second call is a lookup
+    assert len((tmp_path / "calls.txt").read_text().splitlines()) == 4
+    assert os.listdir(os.path.dirname(path)) == [build.LIB_NAME]
+
+
+def test_build_failure_raises_with_the_compiler_output(tmp_path,
+                                                       monkeypatch):
+    monkeypatch.setenv("NVCC", fake_nvcc(tmp_path, fail_on="window.cu"))
+    monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path / "_build"))
+    with pytest.raises(build.KernelLibraryError, match="broken source"):
+        build.build()
+    assert not os.path.exists(build.library_path())
+    assert "-shared" not in (tmp_path / "calls.txt").read_text()
 
 
 def test_cpu_tensors_launch_no_kernel(small_image):

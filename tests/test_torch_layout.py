@@ -7,7 +7,9 @@ import pytest
 from dip_benchmark_tpu.utils import image as jax_image
 from dip_benchmark_tpu_torch.utils.image import (PITCH_ALIGN, from_jax_planar,
                                                  from_planar_padded,
-                                                 make_layout, to_planar_padded)
+                                                 make_layout,
+                                                 stack_planar_padded,
+                                                 to_planar_padded)
 
 FIXTURES = ("small_image", "gradient_image", "fundus_crop")
 
@@ -64,6 +66,31 @@ def test_from_jax_planar_equals_port_planar(fixture, request):
     assert recut.is_contiguous()
     assert recut.dtype == own.dtype and recut.shape == own.shape
     assert bool((recut == own).all())
+
+
+def test_from_jax_planar_takes_a_batch_axis(small_image, rng):
+    h, w = small_image.shape[:2]
+    images = np.stack([small_image, 255 - small_image,
+                       rng.integers(0, 256, small_image.shape, np.uint8)])
+    jax_layout = jax_image.make_layout(h, w)
+    jax_stack = np.stack([jax_image.to_planar_padded(im, jax_layout)
+                          for im in images])
+    recut = from_jax_planar(jax_stack, jax_layout)
+    layout = make_layout(h, w)
+    assert recut.is_contiguous() and tuple(recut.shape) == (3,) + layout.shape
+    for b in range(3):
+        assert bool((recut[b] == from_jax_planar(jax_stack[b],
+                                                 jax_layout)).all())
+    assert bool((recut == stack_planar_padded(images, layout)).all())
+    np.testing.assert_array_equal(from_planar_padded(recut, layout), images)
+
+
+def test_from_jax_planar_refuses_other_ranks(small_image):
+    jax_layout = jax_image.make_layout(*small_image.shape[:2])
+    arr = jax_image.to_planar_padded(small_image, jax_layout)
+    for bad in (arr[0], arr[None, None]):
+        with pytest.raises(ValueError, match="expected"):
+            from_jax_planar(bad, jax_layout)
 
 
 def test_from_jax_planar_refuses_a_short_buffer(small_image):

@@ -23,7 +23,8 @@ from dip_benchmark_tpu_torch.utils.image import (from_jax_planar,
 
 COLS = sorted(OPS)
 POINT_COLS = ("Copy", "Inversion", "Grayscale", "Threshold")
-RADIUS = {"Convolution-5x5": 2, "Convolution-1x5+5x1": 2}  # others: 1
+RADIUS = {"Convolution-5x5": 2, "Convolution-1x5+5x1": 2,
+          "Fused-Pipeline": 2}  # others: 1
 
 
 def run_port(col: str, image: np.ndarray) -> np.ndarray:
@@ -33,8 +34,12 @@ def run_port(col: str, image: np.ndarray) -> np.ndarray:
 
 
 def test_registry_covers_the_device_columns():
-    assert set(OPS) == set(PLAIN) == {
-        c for c in spec.CSV_COLUMNS if c not in ("Upload", "Download")}
+    # The 12 device columns of the matrix and the --pipeline row, as the
+    # JAX package's build_ops registers them.
+    assert set(OPS) == set(PLAIN) == set(pallas.build_ops(
+        jax_image.make_layout(8, 8))) == {
+        c for c in spec.CSV_COLUMNS
+        if c not in ("Upload", "Download")} | {"Fused-Pipeline"}
 
 
 @pytest.mark.parametrize("col", COLS)

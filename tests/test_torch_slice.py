@@ -1,6 +1,6 @@
 """The port's main path end to end against the JAX package's: both CLIs run
-the uint8 matrix on the same image with --verify, and their image dumps
-and CSV schemas agree."""
+the uint8 matrix and the fused pipeline on the same image with --verify,
+and their image dumps and CSV schemas agree."""
 
 import os
 
@@ -10,8 +10,10 @@ from dip_benchmark_tpu import cli as jax_cli
 from dip_benchmark_tpu import spec
 from dip_benchmark_tpu.utils.image import load_image, save_image
 from dip_benchmark_tpu_torch import cli
+from dip_benchmark_tpu_torch.session import BenchmarkSession
 
 DUMPS = [prefix for _, prefix, _ in spec.OPERATION_MATRIX if prefix]
+PIPELINE_ROW = "Fused Pipeline (Grayscale+Threshold+Erosion+Blur)"
 
 
 def table_rows(text: str) -> list[str]:
@@ -22,7 +24,7 @@ def test_port_cli_matches_jax_cli(tmp_path, small_image, capsys):
     img = str(tmp_path / "small.png")
     save_image(img, small_image)
     common = ["--rounds", "2", "--backend", "cpu", "--verify",
-              "--warmup", "0"]
+              "--warmup", "0", "--pipeline"]
 
     port_out, port_csv = tmp_path / "port", str(tmp_path / "port.csv")
     assert cli.main([img, str(port_out), *common, "--csv", port_csv]) == 0
@@ -33,11 +35,13 @@ def test_port_cli_matches_jax_cli(tmp_path, small_image, capsys):
                          "--csv", jax_csv]) == 0
     jax_rows = table_rows(capsys.readouterr().out)
 
-    assert len(port_rows) == len(jax_rows) == 14
+    assert len(port_rows) == len(jax_rows) == 15
     assert [r.split("|")[1] for r in port_rows] == [
         r.split("|")[1] for r in jax_rows]
+    assert port_rows[-1].split("|")[1].strip() == PIPELINE_ROW
     assert len(DUMPS) == 12
-    for prefix in DUMPS:
+    assert sorted(os.listdir(port_out)) == sorted(os.listdir(jax_out))
+    for prefix in DUMPS + ["pipeline"]:
         name = f"{prefix}-small.png"
         np.testing.assert_array_equal(load_image(str(port_out / name)),
                                       load_image(str(jax_out / name)),
@@ -46,9 +50,11 @@ def test_port_cli_matches_jax_cli(tmp_path, small_image, capsys):
         port_lines = f.read().splitlines()
     with open(jax_csv) as f:
         jax_lines = f.read().splitlines()
+    # No column for the pipeline: the CSV keeps the reference schema.
     assert port_lines[0] == jax_lines[0] == spec.CSV_HEADER
     assert port_lines[1].startswith("CPU-torch,")
-    assert len(port_lines[1].split(",")) == len(spec.CSV_COLUMNS) + 1
+    assert len(port_lines[1].split(",")) == len(jax_lines[1].split(",")) \
+        == len(spec.CSV_COLUMNS) + 1
 
 
 def test_port_cli_knobs(tmp_path, gradient_image, capsys):
@@ -80,3 +86,16 @@ def test_port_cli_refuses_a_foreign_csv(tmp_path, small_image):
     assert cli.main([img, str(tmp_path / "out"), "--rounds", "1",
                      "--backend", "cpu", "--csv", str(csv)]) == 2
     assert csv.read_text() == "a,b,c\n1,2,3\n"
+
+
+def test_pipeline_row_is_opt_in(small_image):
+    session = BenchmarkSession(small_image, "cpu")
+    plain = session.operations()
+    table = session.operations(include_pipeline=True)
+    assert len(plain) == 14 and len(table) == 15
+    row = table[-1]
+    assert (row.description, row.prefix, row.csv_column) == (
+        PIPELINE_ROW, "pipeline", "Fused-Pipeline")
+    row.run()
+    np.testing.assert_array_equal(
+        row.fetch(), session.oracle_ops()["Fused-Pipeline"](small_image))
