@@ -3,6 +3,7 @@
 
 Usage (identical contract to the other backends):
     python benchmark.py <infile> <outdir> [--rounds N] [--verify]
+        [--pipeline] [--dtype uint8|float32]
 
 Implementation lives in the dip_benchmark_tpu_torch package at the repo root.
 """

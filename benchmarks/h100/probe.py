@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Device-time probes of the port's kernels on one GPU.
 
-    python3 benchmarks/h100/probe.py [--launches N] [--flush-mb M]
+    python3 benchmarks/h100/probe.py [--launches N] [--flush-mb M] \
+        [--dtype uint8|float32]
 
-On the 3504x2336 benchmark image, for each op of the uint8 matrix and the
-fused pipeline:
+On the 3504x2336 benchmark image, for each op of the matrix and the fused
+pipeline in the chosen data model (default uint8):
 
 - ``profiler_us``: ``torch.profiler``'s mean device time of the op's CUDA
   kernel over N launches;
@@ -33,14 +34,18 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-from dip_benchmark_tpu_torch.ops import OPS  # noqa: E402
+from dip_benchmark_tpu_torch.ops import OPS, OPS_F32  # noqa: E402
 from dip_benchmark_tpu_torch.utils.image import (  # noqa: E402
-    make_layout, to_planar_padded)
+    make_layout, to_planar_padded, to_planar_padded_f32)
 from dip_benchmark_tpu_torch.utils.testimage import resolve_image  # noqa: E402
 
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: covers the host's queueing
 KERNEL_NAMES = ("copy_u8", "point_u8", "grayscale_u8", "window_u8",
-                "pipeline_u8")
+                "pipeline_u8", "point_f32", "grayscale_f32", "window_f32",
+                "pipeline_f32")
+# data model -> (its ops, its layout bake)
+MODELS = {"uint8": (OPS, to_planar_padded),
+          "float32": (OPS_F32, to_planar_padded_f32)}
 
 
 def event_us(fn, n: int, flush: torch.Tensor | None = None) -> float:
@@ -83,6 +88,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--flush-mb", type=int, default=256)
+    ap.add_argument("--dtype", choices=sorted(MODELS), default="uint8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
@@ -92,15 +98,16 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     img, label = resolve_image()
-    planar = to_planar_padded(img, make_layout(*img.shape[:2])).cuda()
+    ops, bake = MODELS[args.dtype]
+    planar = bake(img, make_layout(*img.shape[:2])).cuda()
     flush = torch.empty(args.flush_mb << 20, dtype=torch.uint8, device="cuda")
     n = args.launches
-    result = {"image": label, "nvidia_smi": smi, "launches": n,
-              "flush_mb": args.flush_mb,
+    result = {"image": label, "dtype": args.dtype, "nvidia_smi": smi,
+              "launches": n, "flush_mb": args.flush_mb,
               "empty_us": event_us(lambda: None, n), "ops": {}}
-    print(f"{label} | {smi} | {n} launches | empty event pair "
+    print(f"{label} {args.dtype} | {smi} | {n} launches | empty event pair "
           f"{result['empty_us']:.2f} us")
-    for col, fn in OPS.items():
+    for col, fn in ops.items():
         def call(fn=fn):
             return fn(planar)
         row = {"profiler_us": profiler_us(call, n),

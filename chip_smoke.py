@@ -8,16 +8,23 @@ csrc`` with nvcc, then, with no fallback anywhere:
 
 1. prints the device banner and ``nvidia-smi``'s name and power limit;
 2. builds the kernels and prints the build time;
-3. runs each of the 13 on-device ops (the 12 of the matrix and the fused
-   pipeline) through its kernel and through its plain PyTorch version on
-   the card, on the 3504x2336 benchmark image and on 37x53 and 5x5 images,
-   and requires the whole outputs to be equal (tolerance 0: the uint8
-   model is bit-exact) and the crops to equal the oracle; then the fused
-   pipeline on a stack of three different 3504x2336 images, in one launch;
+3. runs each of the 13 on-device ops of the uint8 model (the 12 of the
+   matrix and the fused pipeline) through its kernel and through its plain
+   PyTorch version on the card, on the 3504x2336 benchmark image and on
+   37x53 and 5x5 images, and requires the whole outputs to be equal
+   (tolerance 0: the uint8 model is bit-exact) and the crops to equal the
+   oracle; then the fused pipeline on a stack of three different 3504x2336
+   images, in one launch;
+   [3f] the same for the 13 ops of the float32 model: kernel equal to plain
+   version on the whole buffer (tolerance 0: both round every multiply and
+   add once, in the same order), and the quantized crop within 1 level of
+   ``oracle_f32.uint8_verify_ops()`` outside its don't-care mask;
 4. drives the port's CLI once at full size (``--rounds 50 --verify
    --pipeline --csv``) with the launch counts zeroed, and requires exit 0,
    15 table rows, 13 image dumps, a CSV row with no pipeline column and a
-   launch of every kernel;
+   launch of every uint8 kernel;
+   [4f] the same with ``--dtype float32``, zeroed again, and a launch of
+   every float32 kernel;
 5. drives the batch tool (``models.batch.main``, ``--backend cuda``) over
    a directory of eight 3504x2336 images and one of another shape, with
    the counts zeroed again, and requires every output to equal the
@@ -30,12 +37,15 @@ csrc`` with nvcc, then, with no fallback anywhere:
    the serving table of the fused pipeline at B = 1, 2, 4, 8: device µs
    per image, end-to-end ``process_batch`` ms per image, and its two host
    steps (layout bake, crop) timed alone;
-7. prints ``{"kernels": [...]}``, the ``nvidia-smi`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   [6f] the same timings for the float32 kernels, with TF32 off for the
+   ``F.conv2d`` yardsticks; every yardstick's output is held to the plain
+   version within 1e-6 (on the interior, for a windowed ``F.conv2d``);
+7. prints ``{"kernels": [...]}`` (26 entries, each with its ``dtype``),
+   the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
-script exits 1 before printing any result. The images, the CSV, the build
-log and a summary go to ``build/chip_smoke/`` in the checkout.
+script exits 1 before printing any result. The images, the CSVs, the
+build log and a summary go to ``build/chip_smoke/`` in the checkout.
 """
 
 from __future__ import annotations
@@ -52,18 +62,21 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from dip_benchmark_tpu_torch import cli, oracle, spec
+from dip_benchmark_tpu_torch import cli, oracle, oracle_f32, spec
 from dip_benchmark_tpu_torch.models import batch
-from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
-                                                     fused_pipeline_plain)
-from dip_benchmark_tpu_torch.ops import OPS, PLAIN, kernels
+from dip_benchmark_tpu_torch.models.pipeline import fused_pipeline
+from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32,
+                                         kernels)
 from dip_benchmark_tpu_torch.ops.kernels import build
 from dip_benchmark_tpu_torch.utils.image import (from_planar_padded,
+                                                 from_planar_padded_f32,
                                                  load_image, make_layout,
                                                  save_image,
                                                  stack_planar_padded,
-                                                 to_planar_padded)
+                                                 to_planar_padded,
+                                                 to_planar_padded_f32)
 from dip_benchmark_tpu_torch.utils.testimage import resolve_image
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -76,10 +89,15 @@ CSRC = "dip_benchmark_tpu_torch/ops/kernels/csrc/"
 # The card's peak rates (H100 SXM data sheet):
 # HBM bytes per second; int8 tensor-core operations per second, for the
 # multiply-adds of u8 data by small integer weights; operations per second
-# outside the tensor cores, for compares, minima, shifts and logic.
+# outside the tensor cores (the FP32 rate), for the uint8 model's
+# compares, minima, shifts and logic.
 HBM_BYTES_S = 3.35e12
 MAC_OPS_S = 1979e12
 ALU_OPS_S = 67e12
+# float32 instructions per second: the data sheet's 67 TFLOP/s counts an
+# FMA as two; an unfused multiply, add, compare or minimum is one
+# instruction of 132 SMs x 128 lanes x 1.98 GHz.
+F32_OPS_S = ALU_OPS_S / 2
 
 # CSV column -> (kernel, its source, file:line and name of the TPU kernel
 # it replaces).
@@ -117,15 +135,86 @@ KERNELS = {
                        "make_fused_pipeline_pallas"),
 }
 
+# The same for the float32 model, all in f32.cu.
+_F32 = "ops/pallas/f32.py:"
+KERNELS_F32 = {
+    "Copy": ("point_f32<Copy>", "f32.cu", "ops/pallas/point.py:32",
+             "_copy_dma(dtype=f32)"),
+    "Inversion": ("point_f32<Invert>", "f32.cu", _F32 + "27",
+                  "_inversion_kernel"),
+    "Grayscale": ("grayscale_f32", "f32.cu", _F32 + "36", "_grayscale"),
+    "Threshold": ("point_f32<Threshold>", "f32.cu", _F32 + "31",
+                  "_threshold_kernel"),
+    "Erosion-3x3-Cross": ("window_f32<MinPlus>", "f32.cu", _F32 + "92",
+                          "body_plus of _make_erosion"),
+    "Erosion-3x3-Square": ("window_f32<MinRect>", "f32.cu", _F32 + "81",
+                           "body_rect of _make_erosion"),
+    "Erosion-1x3+3x1-Square": ("window_f32<MinSep>", "f32.cu", _F32 + "121",
+                               "_make_erosion_sep"),
+    "Convolution-3x3": ("window_f32<ConvDense<3,3>>", "f32.cu", _F32 + "133",
+                        "_make_conv"),
+    "Convolution-1x3+3x1": ("window_f32<ConvSep<3>>", "f32.cu",
+                            _F32 + "160", "_make_conv_sep"),
+    "Convolution-5x5": ("window_f32<ConvDense<5,5>>", "f32.cu", _F32 + "133",
+                        "_make_conv"),
+    "Convolution-1x5+5x1": ("window_f32<ConvSep<5>>", "f32.cu",
+                            _F32 + "160", "_make_conv_sep"),
+    "Gaussian-Blur-3x3": ("window_f32<Blur3x3>", "f32.cu", _F32 + "181",
+                          "_make_blur"),
+    "Fused-Pipeline": ("pipeline_f32", "f32.cu", _F32 + "194",
+                       "_make_pipeline"),
+}
+
 # The one PyTorch call that computes an op's whole-buffer function, where
 # there is one: the yardstick, timed here and used nowhere in the port.
-# None elsewhere: a threshold or luma is several calls, F.conv2d does not
-# round and clamp to u8 (nor run on uint8), PyTorch has no uint8 min-pool,
-# and no call writes the kernels' zero ring.
+# None elsewhere: a threshold is a compare and a select, the fixed-point
+# luma and F.conv2d's convolutions do not round and clamp to u8 (nor does
+# F.conv2d run on uint8), and PyTorch has no uint8 min-pool.
 LIBRARY = {
     "Copy": torch.clone,
     "Inversion": torch.bitwise_not,
 }
+
+
+def _depthwise(fmask: np.ndarray):
+    """F.conv2d with a float mask on each of the three planes: the op's
+    function on the interior (no zero ring), one cuDNN call."""
+    w = torch.from_numpy(np.ascontiguousarray(fmask, np.float32)).cuda()
+    w = w[None, None].expand(3, 1, -1, -1).contiguous()
+    return lambda planar: F.conv2d(planar[None], w, groups=3)[0]
+
+
+def _separable(row_mask: np.ndarray, col_mask: np.ndarray, shift: int):
+    """The 1xN then Nx1 pair as one depthwise F.conv2d with their outer
+    product, the dense mask the two passes compute."""
+    return _depthwise(np.outer(spec.mask_float(col_mask, shift),
+                               spec.mask_float(row_mask, shift)))
+
+
+def library_f32() -> dict:
+    """The float32 yardsticks (built on the card). The luma is one 1x1
+    F.conv2d whose three output planes each weigh (R, G, B) by the luma
+    weights. None for the rest: a threshold is a compare and a cast, and
+    PyTorch's min-pool is a max-pool of the negation (two calls)."""
+    luma = torch.tensor(spec.GRAYSCALE_WEIGHTS_RGB, dtype=torch.float32)
+    luma = luma.expand(3, 3)[..., None, None].contiguous().cuda()
+    return {
+        "Copy": torch.clone,
+        "Inversion": lambda planar: torch.rsub(planar, 1.0),
+        "Grayscale": lambda planar: F.conv2d(planar[None], luma)[0],
+        "Convolution-3x3": _depthwise(spec.mask_float(spec.BLUR_3X3_INT,
+                                                      spec.BLUR_3X3_SHIFT)),
+        "Convolution-1x3+3x1": _separable(spec.BLUR_1X3_INT,
+                                          spec.BLUR_3X1_INT,
+                                          spec.BLUR_SEP3_SHIFT),
+        "Convolution-5x5": _depthwise(spec.mask_float(spec.BLUR_5X5_INT,
+                                                      spec.BLUR_5X5_SHIFT)),
+        "Convolution-1x5+5x1": _separable(spec.BLUR_1X5_INT,
+                                          spec.BLUR_5X1_INT,
+                                          spec.BLUR_SEP5_SHIFT),
+        "Gaussian-Blur-3x3": _depthwise(spec.mask_float(spec.BLUR_3X3_INT,
+                                                        spec.BLUR_3X3_SHIFT)),
+    }
 
 # Operations per position of the (Hp, pitch) plane, all three channels
 # together: (multiply-adds, other operations). They set the operation
@@ -146,6 +235,48 @@ WORK = {
     # luma 3 + blur 9 multiply-adds; shift, compare, 8 ANDs, round 2
     "Fused-Pipeline": (12, 12),
 }
+# float32 operations (multiplies, adds, compares, minima) per position of
+# the plane, all three channels together, at the FP32 instruction rate.
+WORK_F32 = {
+    "Copy": 0,
+    "Inversion": 3,
+    "Grayscale": 5,                  # 3 multiplies, 2 adds, once a position
+    "Threshold": 3,
+    "Erosion-3x3-Cross": 12,
+    "Erosion-3x3-Square": 24,
+    "Erosion-1x3+3x1-Square": 12,
+    "Convolution-3x3": 3 * 17,       # 9 multiplies, 8 adds
+    "Convolution-1x3+3x1": 3 * 10,   # two passes of 3 multiplies, 2 adds
+    "Convolution-5x5": 3 * 49,       # 25 multiplies, 24 adds
+    "Convolution-1x5+5x1": 3 * 18,
+    "Gaussian-Blur-3x3": 3 * 10,
+    # luma 5, compare 1, separable AND 4, blur 10, once a position
+    "Fused-Pipeline": 20,
+}
+
+
+class Model:
+    """One data model as this script drives it: the port's ops and plain
+    versions, the layout bake and crop, the oracle and its tolerance, the
+    kernels and their yardsticks."""
+
+    def __init__(self, dtype, ops, plain, bake, crop, oracle_ops, atol,
+                 kernel_table, library):
+        self.dtype, self.ops, self.plain = dtype, ops, plain
+        self.bake, self.crop = bake, crop
+        self.oracle_ops, self.atol = oracle_ops, atol
+        self.kernels, self.library = kernel_table, library
+
+
+def uint8_model() -> Model:
+    return Model("uint8", OPS, PLAIN, to_planar_padded, from_planar_padded,
+                 oracle.IMAGE_OPS, 0, KERNELS, LIBRARY)
+
+
+def float32_model() -> Model:
+    return Model("float32", OPS_F32, PLAIN_F32, to_planar_padded_f32,
+                 from_planar_padded_f32, oracle_f32.uint8_verify_ops(), 1,
+                 KERNELS_F32, library_f32())
 
 
 def check(cond: bool, what: str) -> None:
@@ -166,73 +297,101 @@ def bound(col: str, planar: torch.Tensor) -> tuple[float, str]:
     ``planar``: each input byte read once and each output byte written
     once at the HBM rate, against its operations at the peak rates."""
     positions = planar.numel() // planar.shape[-3]
-    mac, alu = WORK[col]
-    times = {"bytes": 2 * planar.numel() / HBM_BYTES_S,
-             "operations": max(2 * mac * positions / MAC_OPS_S,
-                               alu * positions / ALU_OPS_S)}
+    if planar.dtype == torch.float32:
+        operations = WORK_F32[col] * positions / F32_OPS_S
+    else:
+        mac, alu = WORK[col]
+        operations = max(2 * mac * positions / MAC_OPS_S,
+                         alu * positions / ALU_OPS_S)
+    times = {"bytes": 2 * planar.numel() * planar.element_size()
+             / HBM_BYTES_S,
+             "operations": operations}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
 
 
-def compare_with_plain(sizes) -> dict:
-    """Kernel against plain version (whole buffer) and oracle (crop) for
-    every op and image; returns the largest |kernel - plain| per op."""
-    errs = {col: 0 for col in OPS}
+def max_delta(got: torch.Tensor, plain: torch.Tensor) -> float:
+    """Largest |kernel - plain| over the whole buffer."""
+    return (got.double() - plain.double()).abs().max().item()
+
+
+def oracle_delta(crop: np.ndarray, expected) -> int:
+    """Largest |crop - oracle| in u8 levels outside the oracle's
+    don't-care mask, as the harness's --verify reads it."""
+    dontcare = None
+    if isinstance(expected, tuple):
+        expected, dontcare = expected
+    delta = np.abs(crop.astype(np.int32) - expected.astype(np.int32))
+    if dontcare is not None:
+        delta = np.where(dontcare, 0, delta)
+    return int(delta.max(initial=0))
+
+
+def compare_with_plain(model: Model, sizes) -> dict:
+    """Kernel against plain version (whole buffer, tolerance 0) and oracle
+    (crop, the model's tolerance) for every op and image; returns the
+    largest |kernel - plain| per op."""
+    errs = {col: 0 for col in model.ops}
     for label, img in sizes:
         layout = make_layout(*img.shape[:2])
-        planar = to_planar_padded(img, layout).cuda()
-        for col, fn in OPS.items():
-            got, plain = fn(planar), PLAIN[col](planar)
+        planar = model.bake(img, layout).cuda()
+        for col, fn in model.ops.items():
+            got, plain = fn(planar), model.plain[col](planar)
             torch.cuda.synchronize()
-            err = int((got.int() - plain.int()).abs().max())
+            err = max_delta(got, plain)
             errs[col] = max(errs[col], err)
             check(torch.equal(got, plain),
-                  f"{col} on {label}: kernel differs from its plain version "
-                  f"(max |delta| {err})")
-            check(np.array_equal(from_planar_padded(got, layout),
-                                 oracle.IMAGE_OPS[col](img)),
-                  f"{col} on {label}: kernel differs from the oracle")
-        print(f"  {label}: {len(OPS)} ops bit-equal to plain version and "
-              f"oracle")
+                  f"{model.dtype} {col} on {label}: kernel differs from its "
+                  f"plain version (max |delta| {err})")
+            off = oracle_delta(model.crop(got, layout),
+                               model.oracle_ops[col](img))
+            check(off <= model.atol,
+                  f"{model.dtype} {col} on {label}: kernel is {off} levels "
+                  f"from the oracle (tolerance {model.atol})")
+        print(f"  {model.dtype} {label}: {len(model.ops)} ops equal to their "
+              f"plain versions, within {model.atol} of the oracle")
     return errs
 
 
-def compare_batched(images, label) -> int:
+def compare_batched(model: Model, images, label) -> float:
     """The pipeline kernel on a (B, 3, Hp, pitch) stack, one launch,
     against its plain version and the oracle of each image."""
     layout = make_layout(*images[0].shape[:2])
-    stack = stack_planar_padded(images, layout).cuda()
-    got, plain = fused_pipeline(stack), fused_pipeline_plain(stack)
+    stack = torch.stack([model.bake(img, layout) for img in images]).cuda()
+    got = model.ops["Fused-Pipeline"](stack)
+    plain = model.plain["Fused-Pipeline"](stack)
     torch.cuda.synchronize()
-    err = int((got.int() - plain.int()).abs().max())
+    err = max_delta(got, plain)
     check(torch.equal(got, plain),
-          f"batched pipeline on {label}: kernel differs from its plain "
-          f"version (max |delta| {err})")
-    crops = from_planar_padded(got, layout)
+          f"{model.dtype} batched pipeline on {label}: kernel differs from "
+          f"its plain version (max |delta| {err})")
+    crops = model.crop(got, layout)
     for i, img in enumerate(images):
-        check(np.array_equal(crops[i], oracle.fused_pipeline(img)),
-              f"batched pipeline on {label}, image {i}: kernel differs "
-              f"from the oracle")
-    print(f"  {label}: batched pipeline bit-equal to plain version and "
-          f"oracle")
+        off = oracle_delta(crops[i], model.oracle_ops["Fused-Pipeline"](img))
+        check(off <= model.atol,
+              f"{model.dtype} batched pipeline on {label}, image {i}: "
+              f"{off} levels from the oracle")
+    print(f"  {model.dtype} {label}: batched pipeline equal to its plain "
+          f"version, within {model.atol} of the oracle")
     return err
 
 
-def drive_main_path(img, label) -> dict:
-    """Run the port's CLI once at full size with the pipeline row; return
-    that run's launch counts."""
+def drive_main_path(model: Model, img, label) -> dict:
+    """Run the port's CLI once at full size with the pipeline row in
+    ``model``'s data model; return that run's launch counts."""
     path = os.path.join(OUT, "benchmark-image.png")
     save_image(path, img)
-    dumps = os.path.join(OUT, "dumps")
+    suffix = "" if model.dtype == "uint8" else "-" + model.dtype
+    dumps = os.path.join(OUT, "dumps" + suffix)
     shutil.rmtree(dumps, ignore_errors=True)
-    csv = os.path.join(OUT, "results.csv")
+    csv = os.path.join(OUT, f"results{suffix}.csv")
     if os.path.exists(csv):
         os.unlink(csv)
     buf = io.StringIO()
     kernels.reset_launches()
     with contextlib.redirect_stdout(buf):
         rc = cli.main([path, dumps, "--rounds", "50", "--verify",
-                       "--pipeline", "--csv", csv])
+                       "--pipeline", "--dtype", model.dtype, "--csv", csv])
     counts = dict(kernels.LAUNCHES)
     text = buf.getvalue()
     print(text, end="")
@@ -249,10 +408,10 @@ def drive_main_path(img, label) -> dict:
           and lines[1].startswith("H100-cuda,")
           and len(lines[1].split(",")) == len(spec.CSV_COLUMNS) + 1,
           f"bad CSV {lines}")
-    unused = [k for k, *_ in KERNELS.values() if counts.get(k, 0) < 1]
+    unused = [k for k, *_ in model.kernels.values() if counts.get(k, 0) < 1]
     check(not unused, f"kernels not launched on the main path: {unused}")
-    print(f"  main path ({label}): rc 0, 15 rows, 13 dumps, --verify "
-          f"passed; launches {counts}")
+    print(f"  main path ({model.dtype}, {label}): rc 0, 15 rows, 13 dumps, "
+          f"--verify passed; launches {counts}")
     return counts
 
 
@@ -356,6 +515,41 @@ def serving_table(images) -> list[dict]:
     return rows
 
 
+def time_kernels(model: Model, img, errs: dict, counts: dict) -> list[dict]:
+    """Kernel, plain and library device time of every kernel of ``model``
+    on the full-size image; one ``{"kernels": [...]}`` entry each."""
+    planar = model.bake(img, make_layout(*img.shape[:2])).cuda()
+    entries = []
+    for col, (name, src, where, tpu_name) in model.kernels.items():
+        versions = [model.ops[col], model.plain[col]]
+        lib_fn = model.library.get(col)
+        if lib_fn is not None:
+            got = lib_fn(planar)
+            # A windowed F.conv2d gives the interior only: r short a side.
+            r = (planar.shape[-1] - got.shape[-1]) // 2
+            want = model.plain[col](planar)
+            want = want[:, r:want.shape[-2] - r, r:want.shape[-1] - r]
+            err = max_delta(got, want)
+            check(err <= 1e-6, f"library {col} is {err} from the plain "
+                               f"version (TF32 on?)")
+            versions.append(lib_fn)
+        ms, plain_ms, *lib = timed(versions, planar)
+        library_ms = lib[0] if lib else None
+        bound_ms, bound_by = bound(col, planar)
+        lib_txt = "none" if library_ms is None else f"{library_ms:9.4f} ms"
+        print(f"    {col:24s} {name:28s} kernel {ms:9.4f} ms | plain "
+              f"{plain_ms:9.4f} ms | library {lib_txt} | bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        entries.append({
+            "name": name, "dtype": model.dtype, "op": col, "route": "cuda",
+            "source": CSRC + src, "replaces": "dip_benchmark_tpu/" + where,
+            "tpu_kernel": tpu_name, "launches": counts.get(name, 0),
+            "max_abs_err": errs[col], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -391,40 +585,33 @@ def main() -> int:
                 for i in range(6)]
     variants += [np.ascontiguousarray(img[::-1]),
                  rng.integers(0, 256, img.shape, np.uint8)]
-    print("[3] kernel against plain version, tolerance 0")
-    errs = compare_with_plain(sizes)
-    errs["Fused-Pipeline"] = max(
-        errs["Fused-Pipeline"],
-        compare_batched(variants[5:], f"B=3 {label} variants"))
+    u8, f32 = uint8_model(), float32_model()
+    errs = {}
+    for model, tag in ((u8, "3"), (f32, "3f")):
+        print(f"[{tag}] {model.dtype}: kernel against plain version, "
+              f"tolerance 0; crop within {model.atol} of the oracle")
+        e = compare_with_plain(model, sizes)
+        e["Fused-Pipeline"] = max(
+            e["Fused-Pipeline"],
+            compare_batched(model, variants[5:], f"B=3 {label} variants"))
+        errs[model.dtype] = e
 
-    print("[4] main path: dip_benchmark_tpu_torch.cli.main --pipeline")
-    counts = drive_main_path(img, label)
+    counts = {}
+    for model, tag in ((u8, "4"), (f32, "4f")):
+        print(f"[{tag}] main path: dip_benchmark_tpu_torch.cli.main "
+              f"--dtype {model.dtype} --pipeline")
+        counts[model.dtype] = drive_main_path(model, img, label)
 
     print("[5] batch tool: dip_benchmark_tpu_torch.models.batch.main")
     other = np.ascontiguousarray(img[: h // 2, : w // 3])
     batch_counts = drive_batch_tool(variants, other)
 
-    print(f"[6] device time, median of {TIMED_LAUNCHES} launches each, CUDA "
-          f"events, {label} | {smi}")
-    planar = to_planar_padded(img, make_layout(h, w)).cuda()
-    entries = []
-    for col, (name, src, where, tpu_name) in KERNELS.items():
-        versions = [OPS[col], PLAIN[col]]
-        if col in LIBRARY:
-            versions.append(LIBRARY[col])
-        ms, plain_ms, *lib = timed(versions, planar)
-        library_ms = lib[0] if lib else None
-        bound_ms, bound_by = bound(col, planar)
-        lib_txt = "none" if library_ms is None else f"{library_ms:9.4f} ms"
-        print(f"    {col:24s} {name:28s} kernel {ms:9.4f} ms | plain "
-              f"{plain_ms:9.4f} ms | library {lib_txt} | bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
-        entries.append({
-            "name": name, "op": col, "route": "cuda", "source": CSRC + src,
-            "replaces": "dip_benchmark_tpu/" + where, "tpu_kernel": tpu_name,
-            "launches": counts.get(name, 0), "max_abs_err": errs[col], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+    def timing_header(tag, model):
+        print(f"[{tag}] {model.dtype} device time, median of "
+              f"{TIMED_LAUNCHES} launches each, CUDA events, {label} | {smi}")
+
+    timing_header("6", u8)
+    entries = time_kernels(u8, img, errs["uint8"], counts["uint8"])
     print(f"    serving: fused pipeline on {label} stacks | {smi}")
     serving = serving_table(variants)
     for row in serving:
@@ -433,12 +620,17 @@ def main() -> int:
               f"process_batch end to end {row['e2e_ms_per_image']:8.2f} "
               f"ms/image (host bake {row['bake_ms_per_image']:.2f}, "
               f"crop {row['crop_ms_per_image']:.2f})")
+    timing_header("6f", f32)
+    # No TF32 in the F.conv2d yardsticks: full float32, like the kernels.
+    torch.backends.cudnn.allow_tf32 = False
+    entries += time_kernels(f32, img, errs["float32"], counts["float32"])
 
+    check(len(entries) == 26, f"{len(entries)} kernel entries, want 26")
     summary = {"kernels": entries}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump({**summary, "serving": serving, "batch_tool_launches":
-                   batch_counts, "nvidia_smi": smi, "image": label}, f,
-                  indent=1)
+                   batch_counts, "main_path_launches": counts,
+                   "nvidia_smi": smi, "image": label}, f, indent=1)
     print(json.dumps(summary))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,17 @@
 """CLI: the reference's three-argument contract on the port's kernels.
 
-The port of ``dip_benchmark_tpu/cli.py`` for the uint8 kernel path:
-positional infile and outdir, rounds as a flag or a third positional,
-default 10000, the device gate (exit 4 when no CUDA device is found), the
-device banner, then the 14-row table (15 with ``--pipeline``), the image
-dumps, an optional CSV row and an optional bit-exact check against the
-oracle.
+The port of ``dip_benchmark_tpu/cli.py`` for the kernel path, both data
+models: positional infile and outdir, rounds as a flag or a third
+positional, default 10000, the device gate (exit 4 when no CUDA device is
+found), the device banner, then the 14-row table (15 with
+``--pipeline``), the image dumps, an optional CSV row and an optional
+check against the oracle: bit-exact for uint8, within 1 level plus the
+pipeline's don't-care mask for ``--dtype float32``.
 
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N --verify
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N --pipeline
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
+        --dtype float32 --verify --pipeline
 
 Exit codes: 0 ok, 2 refused input (argparse errors, too small an image,
 a foreign CSV), 4 no device for --backend.
@@ -59,14 +62,19 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
                         help="Device: the CUDA kernels (default) or their "
                              "plain PyTorch versions on the host")
+    parser.add_argument("--dtype", choices=["uint8", "float32"],
+                        default="uint8",
+                        help="Data model: uint8 HWC (default) or float32 "
+                             "planar CHW in [0,1] (the CUDA.jl backend's)")
     parser.add_argument("--csv", default=None,
                         help="Also write/update a results.csv at this path")
     parser.add_argument("--tool", default=None,
                         help="Tool name for the CSV row (default H100-cuda, "
                              "or CPU-torch with --backend cpu)")
     parser.add_argument("--verify", action="store_true",
-                        help="Check every op output bit-exactly against the "
-                             "oracle before reporting")
+                        help="Check every op output against the oracle "
+                             "before reporting (bit-exact for uint8; within "
+                             "1 level for float32)")
     parser.add_argument("--pipeline", action="store_true",
                         help="Add a 15th row: the fused "
                              "grayscale+threshold+erosion+blur pipeline "
@@ -97,7 +105,7 @@ def main(argv: list[str] | None = None) -> int:
 
     image, filename = args.infile
     try:
-        session = BenchmarkSession(image, device)
+        session = BenchmarkSession(image, device, dtype=args.dtype)
     except ValueError as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 2

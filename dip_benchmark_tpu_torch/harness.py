@@ -71,7 +71,8 @@ class BenchmarkRunner:
         """verify_against: the input image; each image op's output is then
         held against ``verify_ops[csv_column](verify_against)`` within
         ``verify_atol``, and any difference raises AssertionError after
-        every op was checked."""
+        every op was checked. An oracle op may return ``(expected,
+        dontcare)``; the delta is then zeroed where ``dontcare`` holds."""
         if verify_against is not None and verify_ops is None:
             raise ValueError("verify_against needs verify_ops, the oracle "
                              "ops keyed by CSV column")
@@ -121,8 +122,17 @@ class BenchmarkRunner:
                            output)
             if verify_against is not None:
                 expected = verify_ops[op.csv_column](verify_against)
+                dontcare = None
+                if isinstance(expected, tuple):
+                    # (expected, dontcare-mask): the oracle exempts pixels
+                    # whose value legitimately depends on association
+                    # order (f32 threshold-boundary pixels through a step
+                    # discontinuity — oracle_f32.uint8_verify_ops).
+                    expected, dontcare = expected
                 delta = np.abs(output.astype(np.int32)
                                - expected.astype(np.int32))
+                if dontcare is not None:
+                    delta = np.where(dontcare, 0, delta)
                 if delta.max(initial=0) > verify_atol:
                     diff = int(np.sum(delta > verify_atol))
                     failures.append(

@@ -26,26 +26,27 @@ from ..ops import kernels, point, window
 RING = 2  # erosion radius 1 + blur radius 1
 
 
-def _single_plain(planar: torch.Tensor) -> torch.Tensor:
-    gray = point.grayscale_plain(planar)
-    mask = point.threshold_plain(gray)
-    eroded = window.erosion_plain(mask, spec.SQUARE_MASK_3X3)
-    out = window.blur3x3_plain(eroded)
-    # The blur at rows and columns 1 and -2 reads the erosion's zero ring;
-    # the kernel writes 0 there, and so does this version.
-    out[:, :RING] = 0
-    out[:, -RING:] = 0
-    out[:, :, :RING] = 0
-    out[:, :, -RING:] = 0
-    return out
+def pipeline_plain(planar: torch.Tensor, grayscale, threshold,
+                   blur) -> torch.Tensor:
+    """One data model's plain ``grayscale``, ``threshold``, the square
+    erosion and ``blur`` composed, with the outer 2-ring set to 0; one
+    image or a stack. The erosion's plain version serves every dtype."""
+    def single(p: torch.Tensor) -> torch.Tensor:
+        eroded = window.erosion_plain(threshold(grayscale(p)),
+                                      spec.SQUARE_MASK_3X3)
+        # The blur at rows and columns 1 and -2 reads the erosion's zero
+        # ring; the kernel writes 0 there, and so does this version.
+        return window.zero_ring(blur(eroded), RING)
+
+    if planar.dim() == 4:
+        return torch.stack([single(p) for p in planar])
+    return single(planar)
 
 
 def fused_pipeline_plain(planar: torch.Tensor) -> torch.Tensor:
-    """The port's plain grayscale, threshold, square erosion and blur
-    composed, with the outer 2-ring set to 0; one image or a stack."""
-    if planar.dim() == 4:
-        return torch.stack([_single_plain(p) for p in planar])
-    return _single_plain(planar)
+    """The uint8 model's plain pipeline."""
+    return pipeline_plain(planar, point.grayscale_plain,
+                          point.threshold_plain, window.blur3x3_plain)
 
 
 def fused_pipeline(planar: torch.Tensor) -> torch.Tensor:

@@ -19,14 +19,15 @@ class KernelLaunchError(RuntimeError):
 
 
 def check_planar(planar: torch.Tensor, channels: int | None = None,
-                 batched: bool = False) -> None:
-    """Raise unless ``planar`` is a contiguous uint8 ``(C, Hp, pitch)``
-    tensor (or, with ``batched``, also a ``(B, C, Hp, pitch)`` stack)
-    whose pitch and base address suit 16-byte vector access."""
+                 batched: bool = False,
+                 dtype: torch.dtype = torch.uint8) -> None:
+    """Raise unless ``planar`` is a contiguous ``(C, Hp, pitch)`` tensor of
+    ``dtype`` (or, with ``batched``, also a ``(B, C, Hp, pitch)`` stack)
+    whose pitch in bytes and base address suit 16-byte vector access."""
     dims = (3, 4) if batched else (3,)
-    if planar.dtype != torch.uint8 or planar.dim() not in dims:
+    if planar.dtype != dtype or planar.dim() not in dims:
         want = " or (B, C, Hp, pitch)" if batched else ""
-        raise ValueError(f"expected a (C, Hp, pitch){want} uint8 tensor, "
+        raise ValueError(f"expected a (C, Hp, pitch){want} {dtype} tensor, "
                          f"got {planar.dtype} {tuple(planar.shape)}")
     if channels is not None and planar.shape[-3] != channels:
         raise ValueError(f"expected {channels} planes, got "
@@ -34,7 +35,8 @@ def check_planar(planar: torch.Tensor, channels: int | None = None,
     if not planar.is_contiguous():
         raise ValueError("planar tensor must be contiguous")
     if planar.device.type == "cuda" and (
-            planar.shape[-1] % 16 or planar.data_ptr() % 16):
+            planar.shape[-1] * planar.element_size() % 16
+            or planar.data_ptr() % 16):
         raise ValueError("the CUDA kernels need a pitch and a base address "
                          "that are multiples of 16 bytes")
 

@@ -24,7 +24,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
-SOURCES = ("point.cu", "window.cu", "pipeline.cu")
+SOURCES = ("point.cu", "window.cu", "pipeline.cu", "f32.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,6 +34,7 @@ BUILD_TIMEOUT_S = 900
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _N = ctypes.c_size_t
+_F = ctypes.c_float
 # name -> argument types, the trailing _P of each being the CUDA stream.
 SIGNATURES = {
     "dip_copy_u8": (_P, _P, _N, _P),
@@ -47,6 +48,17 @@ SIGNATURES = {
     "dip_conv_dense_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
     "dip_conv_sep_u8": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
     "dip_pipeline_u8": (_P, _P, _I, _I, _I, _P),
+    "dip_copy_f32": (_P, _P, _N, _P),
+    "dip_inversion_f32": (_P, _P, _N, _P),
+    "dip_threshold_f32": (_P, _P, _N, _P),
+    "dip_grayscale_f32": (_P, _P, _N, _F, _F, _F, _P),
+    "dip_erosion_rect_f32": (_P, _P, _I, _I, _I, _P),
+    "dip_erosion_plus_f32": (_P, _P, _I, _I, _I, _P),
+    "dip_erosion_sep_f32": (_P, _P, _I, _I, _I, _P),
+    "dip_blur3x3_f32": (_P, _P, _I, _I, _I, _P),
+    "dip_conv_dense_f32": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "dip_conv_sep_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "dip_pipeline_f32": (_P, _P, _I, _I, _I, _F, _F, _F, _P),
 }
 
 

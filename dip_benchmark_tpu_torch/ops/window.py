@@ -44,10 +44,19 @@ def _tap(planar: torch.Tensor, hy: int, hx: int, dy: int,
 def _framed(core: torch.Tensor, planar: torch.Tensor, hy: int,
             hx: int) -> torch.Tensor:
     """The interior ``core`` inside a ring of ``hy`` rows and ``hx``
-    columns of zeros, shaped like ``planar``."""
+    columns of zeros, shaped like ``planar`` and of its dtype."""
     out = torch.zeros_like(planar)
     _, hp, pitch = planar.shape
-    out[:, hy:hp - hy, hx:pitch - hx] = core.to(torch.uint8)
+    out[:, hy:hp - hy, hx:pitch - hx] = core.to(planar.dtype)
+    return out
+
+
+def zero_ring(out: torch.Tensor, r: int) -> torch.Tensor:
+    """``out`` with its outer ``r`` rows and columns set to 0, in place."""
+    out[..., :r, :] = 0
+    out[..., -r:, :] = 0
+    out[..., :r] = 0
+    out[..., -r:] = 0
     return out
 
 

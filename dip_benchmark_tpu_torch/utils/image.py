@@ -1,4 +1,4 @@
-"""Image I/O and the port's device layout: a planar, mirror-padded uint8 image.
+"""Image I/O and the port's device layout: a planar, mirror-padded image.
 
 Image I/O and the input check are the port's own copies of
 ``dip_benchmark_tpu/utils/image.py``'s: RGB uint8 HWC at the edges, cv2
@@ -10,7 +10,12 @@ columns, so windowed kernels read every tap without a boundary branch and
 every op maps the layout to itself. What changes is the geometry: the
 TPU's 128-lane width, 8-row DMA tiles and VMEM bands are gone. Rows are
 exactly ``H + 2 * pad``; the pitch is ``W + 2 * pad`` rounded up to 16
-bytes so 16-byte vector loads cover every row and plane.
+elements so 16-byte vector loads cover every row and plane.
+
+The float32 data model keeps the same geometry: ``(C, Hp, pitch)``
+float32 in [0, 1], the uint8 bake divided by 255 on the host
+(``to_planar_padded_f32``), and a crop that quantizes after cropping
+(``from_planar_padded_f32``).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ except ImportError:  # pragma: no cover
     _cv2 = None
 
 DEFAULT_HALO = 2   # the largest kernel radius of the op matrix (5x5)
-PITCH_ALIGN = 16   # bytes: one uint4 vector
+PITCH_ALIGN = 16   # elements: one uint4 vector of uint8, four of float32
 
 
 # -- image I/O -------------------------------------------------------------
@@ -166,21 +171,43 @@ def stack_planar_padded(images: np.ndarray, layout: PlanarLayout,
 def from_planar_padded(planar: torch.Tensor,
                        layout: PlanarLayout) -> np.ndarray:
     """``(C, Hp, pitch)`` or ``(B, C, Hp, pitch)`` on any device -> HWC or
-    ``(B, H, W, C)`` uint8 host array, cropped."""
+    ``(B, H, W, C)`` host array of its dtype, cropped."""
     p = layout.pad
     valid = planar[..., p:p + layout.height, p:p + layout.width]
     return valid.movedim(-3, -1).contiguous().cpu().numpy()
+
+
+def to_planar_padded_f32(image: np.ndarray,
+                         layout: PlanarLayout) -> torch.Tensor:
+    """HWC uint8 -> ``(C, Hp, pitch)`` float32 CPU tensor in [0, 1], the
+    uint8 bake divided by 255 in NumPy (exact per element: u8 / 255
+    commutes with the mirror gather). The division stays on the host: a
+    division on the card need not round as NumPy's does."""
+    baked = to_planar_padded(image, layout).numpy()
+    return torch.from_numpy(baked.astype(np.float32) / np.float32(255))
+
+
+def from_planar_padded_f32(planar: torch.Tensor,
+                           layout: PlanarLayout) -> np.ndarray:
+    """``(C, Hp, pitch)`` or ``(B, C, Hp, pitch)`` float32 on any device ->
+    HWC or ``(B, H, W, C)`` uint8 host array: crop first, then
+    ``clip(rint(x * 255), 0, 255)``, as the JAX package's f32 crop does."""
+    x = from_planar_padded(planar, layout)
+    return np.clip(np.rint(x * np.float32(255)), 0, 255).astype(np.uint8)
 
 
 def from_jax_planar(arr: np.ndarray, jax_layout) -> torch.Tensor:
     """Re-cut the JAX package's planar array into the port's layout.
 
     ``arr`` is a ``(C, Hp, Wp)`` array from
-    ``dip_benchmark_tpu.utils.image.to_planar_padded`` (or a JAX op's
-    output) on ``jax_layout``, or a ``(B, C, Hp, Wp)`` stack of them.
-    Both layouts bake the same mirror and slack rules relative to the
-    image origin, so the port's buffer is the window of ``pad`` rows and
-    columns around the image, ``pitch`` columns wide.
+    ``dip_benchmark_tpu.utils.image.to_planar_padded`` or
+    ``to_planar_padded_f32`` (or a JAX op's output) on ``jax_layout``, or
+    a ``(B, C, Hp, Wp)`` stack of them; its dtype is kept. Both layouts
+    bake the same mirror and slack rules relative to the image origin, so
+    the port's buffer is the window of ``pad`` rows and columns around the
+    image, ``pitch`` columns wide. A JAX f32 layout
+    (``make_layout(..., itemsize=4)``) has another band and so another
+    height; the window is cut the same way.
     """
     layout = make_layout(jax_layout.height, jax_layout.width,
                          jax_layout.channels)

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from dip_benchmark_tpu_torch import cli
-from dip_benchmark_tpu_torch.ops import OPS, kernels
+from dip_benchmark_tpu_torch.ops import OPS, OPS_F32, kernels
 from dip_benchmark_tpu_torch.ops.kernels import build
 from dip_benchmark_tpu_torch.utils.image import (make_layout, save_image,
-                                                 to_planar_padded)
+                                                 to_planar_padded,
+                                                 to_planar_padded_f32)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "dip_benchmark_tpu_torch")
@@ -52,6 +53,8 @@ def test_port_imports_neither_jax_nor_triton():
         "import dip_benchmark_tpu_torch.session, dip_benchmark_tpu_torch.ops\n"
         "import dip_benchmark_tpu_torch.harness\n"
         "import dip_benchmark_tpu_torch.oracle\n"
+        "import dip_benchmark_tpu_torch.oracle_f32\n"
+        "import dip_benchmark_tpu_torch.ops.f32\n"
         "import dip_benchmark_tpu_torch.models.batch\n"
         "import dip_benchmark_tpu_torch.models.pipeline\n"
         "import dip_benchmark_tpu_torch.utils.testimage") == []
@@ -130,9 +133,10 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert sorted(c.split()[-1].rsplit("/", 1)[1] for c in compiles) == \
         sorted(build.SOURCES)
     assert all(" -c " in c and "sm_90a" in c for c in compiles)
-    assert "-shared" in link.split() and link.count(".o") == 3
+    assert "-shared" in link.split() and link.count(".o") == len(build.SOURCES)
     assert build.build() == path  # built once: the second call is a lookup
-    assert len((tmp_path / "calls.txt").read_text().splitlines()) == 4
+    assert len((tmp_path / "calls.txt").read_text().splitlines()) == len(
+        build.SOURCES) + 1
     assert os.listdir(os.path.dirname(path)) == [build.LIB_NAME]
 
 
@@ -147,10 +151,15 @@ def test_build_failure_raises_with_the_compiler_output(tmp_path,
 
 
 def test_cpu_tensors_launch_no_kernel(small_image):
-    planar = to_planar_padded(small_image, make_layout(*small_image.shape[:2]))
+    layout = make_layout(*small_image.shape[:2])
+    planar = to_planar_padded(small_image, layout)
     kernels.reset_launches()
     for fn in OPS.values():
         fn(planar)
+    planar_f32 = to_planar_padded_f32(small_image, layout)
+    for fn in OPS_F32.values():
+        fn(planar_f32)
+    OPS_F32["Fused-Pipeline"](torch.stack([planar_f32, planar_f32]))
     assert kernels.LAUNCHES == {}
 
 
@@ -160,6 +169,13 @@ def test_wrapper_refuses_other_devices(col):
     planar = torch.empty((3, 9, 16), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="meta"):
         OPS[col](planar)
+
+
+@pytest.mark.parametrize("col", sorted(OPS_F32))
+def test_f32_wrapper_refuses_other_devices(col):
+    planar = torch.empty((3, 9, 16), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        OPS_F32[col](planar)
 
 
 @pytest.mark.parametrize("bad", [

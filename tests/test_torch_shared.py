@@ -1,7 +1,8 @@
 """The port's own copy of the NumPy-only layer against the JAX package's:
-spec constants, the oracle, the synthetic image and its resolver, image
-I/O, timing, reporting and the harness contract. Tolerance 0 everywhere:
-these are copies, so they must give the same answers."""
+spec constants, the oracle and the f32 oracle, the synthetic image and its
+resolver, image I/O, timing, reporting and the harness contract, with its
+don't-care verify. Tolerance 0 everywhere: these are copies, so they must
+give the same answers."""
 
 import os
 
@@ -10,12 +11,13 @@ import pytest
 
 from dip_benchmark_tpu import harness as jax_harness
 from dip_benchmark_tpu import oracle as jax_oracle
+from dip_benchmark_tpu import oracle_f32 as jax_oracle_f32
 from dip_benchmark_tpu import spec as jax_spec
 from dip_benchmark_tpu.utils import image as jax_image
 from dip_benchmark_tpu.utils import reporting as jax_reporting
 from dip_benchmark_tpu.utils import testimage as jax_testimage
 from dip_benchmark_tpu.utils import timing as jax_timing
-from dip_benchmark_tpu_torch import harness, oracle, spec
+from dip_benchmark_tpu_torch import harness, oracle, oracle_f32, spec
 from dip_benchmark_tpu_torch.utils import image, reporting, testimage, timing
 
 SPEC_NAMES = sorted(n for n in dir(jax_spec)
@@ -61,6 +63,71 @@ def test_oracle_equals_jax_package(col):
         assert got.dtype == np.uint8 and got.shape == img.shape
         np.testing.assert_array_equal(got, jax_oracle.IMAGE_OPS[col](img),
                                       err_msg=f"{col} seed {seed}")
+
+
+@pytest.mark.parametrize("col", sorted(jax_oracle_f32.IMAGE_OPS_F32))
+def test_oracle_f32_equals_jax_package(col):
+    assert set(oracle_f32.IMAGE_OPS_F32) == set(jax_oracle_f32.IMAGE_OPS_F32)
+    for seed in SEEDS:
+        x = oracle_f32.from_uint8_hwc(random_image(seed))
+        np.testing.assert_array_equal(
+            x, jax_oracle_f32.from_uint8_hwc(random_image(seed)))
+        got = oracle_f32.IMAGE_OPS_F32[col](x)
+        assert got.dtype == np.float32 and got.shape == x.shape
+        np.testing.assert_array_equal(
+            got, jax_oracle_f32.IMAGE_OPS_F32[col](x),
+            err_msg=f"{col} seed {seed}")
+        np.testing.assert_array_equal(oracle_f32.to_uint8_hwc(got),
+                                      jax_oracle_f32.to_uint8_hwc(got))
+
+
+def boundary_image() -> np.ndarray:
+    # rgb (126, 139, 18) has an f32 luma of exactly 0.5 in NumPy's order
+    # (tests/test_f32_path.py's boundary case).
+    img = np.full((16, 20, 3), 40, np.uint8)
+    img[5, 7] = (126, 139, 18)
+    return img
+
+
+@pytest.mark.parametrize("col", sorted(jax_oracle_f32.IMAGE_OPS_F32))
+def test_f32_verify_ops_equal_jax_package(col):
+    mine = oracle_f32.uint8_verify_ops()[col]
+    theirs = jax_oracle_f32.uint8_verify_ops()[col]
+    for img in (random_image(9), boundary_image()):
+        a, b = mine(img), theirs(img)
+        assert isinstance(a, tuple) == isinstance(b, tuple)
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_array_equal(x, y, err_msg=col)
+    # Only the pipeline, and only at a luma on the step, gets a mask.
+    assert isinstance(mine(boundary_image()), tuple) == (
+        col == "Fused-Pipeline")
+
+
+def test_f32_boundary_mask_covers_the_spread():
+    expected, mask = oracle_f32.uint8_verify_ops()["Fused-Pipeline"](
+        boundary_image())
+    assert expected.shape == mask.shape == (16, 20, 3)
+    assert mask[5, 7].all() and mask[7, 9].all()   # pixel + radius-2 spread
+    assert not mask[5, 12].any()                   # outside the dilation
+
+
+def test_near_threshold_and_dilate_mask_equal_jax_package():
+    rng = np.random.default_rng(10)
+    x = rng.random((3, 9, 11), dtype=np.float32)
+    x[1, 2, 3] = np.float32(0.5)
+    x[0, 6, 8] = np.float32(0.5) + np.float32(2 ** -23)
+    x[2, 0, 0] = np.float32(0.5) - np.float32(2 ** -21)  # outside 4 ulps
+    near = oracle_f32.near_threshold_mask(x)
+    np.testing.assert_array_equal(near, jax_oracle_f32.near_threshold_mask(x))
+    assert near[2, 3] and near[6, 8] and not near[0, 0]
+    assert oracle_f32.THRESHOLD_ULP_SLACK == jax_oracle_f32.THRESHOLD_ULP_SLACK
+    for ry, rx in ((0, 0), (1, 2), (2, 2)):
+        np.testing.assert_array_equal(
+            oracle_f32.dilate_mask(near, ry, rx),
+            jax_oracle_f32.dilate_mask(near, ry, rx))
+    empty = np.zeros((4, 5), bool)
+    assert not oracle_f32.dilate_mask(empty, 2, 2).any()
 
 
 def test_oracle_dilation_equals_jax_package():
@@ -223,3 +290,43 @@ def test_op_matrix_entry_equals_jax_package():
             col)
     with pytest.raises(KeyError):
         harness.op_matrix_entry("Fused-Pipeline")
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_harness_verify_respects_dontcare_mask_like_jax_package(masked):
+    # An oracle that returns (expected, dontcare): the delta under the mask
+    # is zeroed. The port's harness passes and fails exactly where the
+    # JAX package's does.
+    img = np.zeros((4, 4, 3), np.uint8)
+    got = np.zeros((4, 4, 3), np.uint8)
+    got[1, 1] = 200
+    mask = np.zeros(got.shape, bool)
+    mask[1, 1] = masked
+    verify = {"Copy": lambda im: (np.zeros_like(got), mask)}
+    outcomes = []
+    for module, kw in ((harness, {}), (jax_harness, {"quiet": True})):
+        op = module.Operation("X", "x", "Copy", lambda: None, lambda: got)
+        runner = module.BenchmarkRunner([op], rounds=1)
+        try:
+            runner.run(verify_against=img, verify_ops=verify, **kw)
+            outcomes.append("passed")
+        except AssertionError as e:
+            outcomes.append(str(e))
+    assert outcomes[0] == outcomes[1]
+    assert (outcomes[0] == "passed") == masked
+    if not masked:
+        assert outcomes[0].endswith("Copy: 3 px differ (max |delta| = 200)")
+
+
+def test_harness_dontcare_mask_leaves_other_pixels_strict():
+    img = np.zeros((4, 4, 3), np.uint8)
+    got = np.zeros((4, 4, 3), np.uint8)
+    got[1, 1] = 200
+    got[2, 2] = 2       # outside the mask, beyond atol 1
+    mask = np.zeros(got.shape, bool)
+    mask[1, 1] = True
+    op = harness.Operation("X", "x", "Copy", lambda: None, lambda: got)
+    with pytest.raises(AssertionError, match=r"Copy: 3 px differ \(max"):
+        harness.BenchmarkRunner([op], rounds=1).run(
+            verify_against=img, verify_atol=1,
+            verify_ops={"Copy": lambda im: (np.zeros_like(got), mask)})
