@@ -4,8 +4,9 @@
     python3 benchmarks/h100/probe.py [--launches N] [--flush-mb M] \
         [--dtype uint8|float32]
 
-On the 3504x2336 benchmark image, for each op of the matrix and the fused
-pipeline in the chosen data model (default uint8):
+On the 3504x2336 benchmark image, for each op of the matrix, the fused
+pipeline and ``chip_smoke.py``'s fused chains C1-C4 (each on a planar
+baked with its halo) in the chosen data model (default uint8):
 
 - ``profiler_us``: ``torch.profiler``'s mean device time of the op's CUDA
   kernel over N launches;
@@ -34,6 +35,8 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
+from chip_smoke import CHAINS  # noqa: E402
+from dip_benchmark_tpu_torch.models import chain  # noqa: E402
 from dip_benchmark_tpu_torch.ops import OPS, OPS_F32  # noqa: E402
 from dip_benchmark_tpu_torch.utils.image import (  # noqa: E402
     make_layout, to_planar_padded, to_planar_padded_f32)
@@ -42,7 +45,7 @@ from dip_benchmark_tpu_torch.utils.testimage import resolve_image  # noqa: E402
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: covers the host's queueing
 KERNEL_NAMES = ("copy_u8", "point_u8", "grayscale_u8", "window_u8",
                 "pipeline_u8", "point_f32", "grayscale_f32", "window_f32",
-                "pipeline_f32")
+                "pipeline_f32", "chain_kernel")
 # data model -> (its ops, its layout bake)
 MODELS = {"uint8": (OPS, to_planar_padded),
           "float32": (OPS_F32, to_planar_padded_f32)}
@@ -107,9 +110,16 @@ def main(argv=None) -> int:
               "empty_us": event_us(lambda: None, n), "ops": {}}
     print(f"{label} {args.dtype} | {smi} | {n} launches | empty event pair "
           f"{result['empty_us']:.2f} us")
-    for col, fn in ops.items():
-        def call(fn=fn):
-            return fn(planar)
+    runs = {col: (fn, planar) for col, fn in ops.items()}
+    for name, cols in CHAINS.items():
+        layout = make_layout(*img.shape[:2],
+                             pad=max(2, *chain.check_chain(cols)))
+        make = (chain.make_fused_chain_f32 if args.dtype == "float32"
+                else chain.make_fused_chain)
+        runs[name] = (make(layout, cols), bake(img, layout).cuda())
+    for col, (fn, x) in runs.items():
+        def call(fn=fn, x=x):
+            return fn(x)
         row = {"profiler_us": profiler_us(call, n),
                "warm_us": event_us(call, n),
                "cold_us": event_us(call, n, flush)}

@@ -19,16 +19,31 @@ csrc`` with nvcc, then, with no fallback anywhere:
    version on the whole buffer (tolerance 0: both round every multiply and
    add once, in the same order), and the quantized crop within 1 level of
    ``oracle_f32.uint8_verify_ops()`` outside its don't-care mask;
+   [3c] the fused chains C1-C4 (``CHAINS``) and Grayscale alone through
+   ``chain_u8`` and ``chain_f32``: kernel equal to plain version on the
+   whole buffer (tolerance 0) at 3504x2336, 37x53 and, for a radius up to
+   4, 9x9, and C1 and C2 on a stack of three 3504x2336 images in one
+   launch; the crops
+   against the chain's sequential oracle, and C2's uint8 crop against
+   ``pipeline_u8``'s, the same function;
+   [3d] the morphology library surface (``MORPHOLOGY``: dilation by the
+   3x3 square, cross and 5x5 diamond, erosion by the diamond in both
+   models), driven once at full size with the counts zeroed and checked
+   against the oracle, then each kernel equal to its plain version at
+   3504x2336 and 37x53;
 4. drives the port's CLI once at full size (``--rounds 50 --verify
-   --pipeline --csv``) with the launch counts zeroed, and requires exit 0,
-   15 table rows, 13 image dumps, a CSV row with no pipeline column and a
-   launch of every uint8 kernel;
-   [4f] the same with ``--dtype float32``, zeroed again, and a launch of
-   every float32 kernel;
+   --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
+   requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
+   the pipeline nor the chain column and a launch of every uint8 kernel,
+   ``chain_u8`` included;
+   [4f] the same with ``--dtype float32 --fuse C2``, zeroed again, and a
+   launch of every float32 kernel, ``chain_f32`` included;
 5. drives the batch tool (``models.batch.main``, ``--backend cuda``) over
    a directory of eight 3504x2336 images and one of another shape, with
    the counts zeroed again, and requires every output to equal the
-   oracle's fused pipeline and ``pipeline_u8`` to have run;
+   oracle's fused pipeline and ``pipeline_u8`` to have run; then again
+   with ``--op`` C3, every output equal to the chain's sequential oracle
+   and one ``chain_u8`` launch per shape group;
 6. times each kernel against its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events, in the order
    kernel, plain, library, library, plain, kernel, behind a sleep kernel
@@ -40,7 +55,11 @@ csrc`` with nvcc, then, with no fallback anywhere:
    [6f] the same timings for the float32 kernels, with TF32 off for the
    ``F.conv2d`` yardsticks; every yardstick's output is held to the plain
    version within 1e-6 (on the interior, for a windowed ``F.conv2d``);
-7. prints ``{"kernels": [...]}`` (26 entries, each with its ``dtype``),
+   [6c] the same for each chain in each model on its R-halo planar, with
+   the summed device times of the port's unfused kernels for the same ops
+   (from phases 6 and 6f) as its yardstick (no single PyTorch call
+   computes a chain), and for the morphology kernels;
+7. prints ``{"kernels": [...]}`` (39 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -65,10 +84,10 @@ import torch
 import torch.nn.functional as F
 
 from dip_benchmark_tpu_torch import cli, oracle, oracle_f32, spec
-from dip_benchmark_tpu_torch.models import batch
+from dip_benchmark_tpu_torch.models import batch, chain
 from dip_benchmark_tpu_torch.models.pipeline import fused_pipeline
-from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32,
-                                         kernels)
+from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32, f32,
+                                         kernels, window)
 from dip_benchmark_tpu_torch.ops.kernels import build
 from dip_benchmark_tpu_torch.utils.image import (from_planar_padded,
                                                  from_planar_padded_f32,
@@ -165,11 +184,53 @@ KERNELS_F32 = {
                        "_make_pipeline"),
 }
 
+# The fused chains driven and timed here: C1 and C3 per channel (R = 3),
+# C2 grayscale first (R = 2, the pipeline's ops), C4 at the deepest halo.
+CHAINS = {
+    "C1": ["Convolution-5x5", "Inversion", "Convolution-3x3"],
+    "C2": ["Grayscale", "Threshold", "Erosion-3x3-Square",
+           "Gaussian-Blur-3x3"],
+    "C3": ["Convolution-1x5+5x1", "Erosion-3x3-Cross"],
+    "C4": ["Convolution-5x5"] * 4,
+}
+# Checked in phase 3c beside them, not timed: the luma alone, a chain with
+# no stage after it (an empty descriptor).
+CHECKED_CHAINS = {**CHAINS, "G": ["Grayscale"]}
+# data model -> (kernel, file:line and name of the TPU kernel it replaces).
+CHAIN_KERNELS = {
+    "uint8": ("chain_u8", "models/chain.py:362",
+              "make_fused_chain and _make_gray_chain (:530)"),
+    "float32": ("chain_f32", "models/chain.py:473", "make_fused_chain_f32"),
+}
+DIAMOND_5X5 = np.array([[0, 0, 1, 0, 0], [0, 1, 1, 1, 0], [1, 1, 1, 1, 1],
+                        [0, 1, 1, 1, 0], [0, 0, 1, 0, 0]], bool)
+# The morphology library surface: (label, data model, make_* function,
+# structuring element, kernel, file:line and name of the TPU kernel it
+# replaces).
+_W = "ops/pallas/window.py:"
+MORPHOLOGY = [
+    ("Dilation-3x3-Square", "uint8", window.make_dilation,
+     spec.SQUARE_MASK_3X3, "window_u8<MaxRect>", _W + "353",
+     "make_dilation (body_rect :297)"),
+    ("Dilation-3x3-Cross", "uint8", window.make_dilation,
+     spec.CROSS_MASK_3X3, "window_u8<MaxPlus>", _W + "353",
+     "make_dilation (body_plus :313)"),
+    ("Dilation-5x5-Diamond", "uint8", window.make_dilation, DIAMOND_5X5,
+     "window_u8<Taps<Max>>", _W + "353", "make_dilation (body_generic :326)"),
+    ("Erosion-5x5-Diamond", "uint8", window.make_erosion, DIAMOND_5X5,
+     "window_u8<Taps<Min>>", _W + "326", "body_generic of _make_morphology"),
+    ("Erosion-5x5-Diamond", "float32", f32.make_erosion, DIAMOND_5X5,
+     "window_f32<Taps<Min>>", "ops/pallas/f32.py:104",
+     "body_generic of _make_erosion"),
+]
+
 # The one PyTorch call that computes an op's whole-buffer function, where
 # there is one: the yardstick, timed here and used nowhere in the port.
 # None elsewhere: a threshold is a compare and a select, the fixed-point
 # luma and F.conv2d's convolutions do not round and clamp to u8 (nor does
-# F.conv2d run on uint8), and PyTorch has no uint8 min-pool.
+# F.conv2d run on uint8), PyTorch has no uint8 min-pool, and its CUDA
+# max-pool refuses uint8 ("max_pool2d_with_indices_out_cuda_frame" not
+# implemented for 'Byte'), so the dilations have none either.
 LIBRARY = {
     "Copy": torch.clone,
     "Inversion": torch.bitwise_not,
@@ -294,13 +355,43 @@ def nvidia_smi_line() -> str:
 
 def bound(col: str, planar: torch.Tensor) -> tuple[float, str]:
     """(least ms, what bounds it) for one call of op ``col`` on
-    ``planar``: each input byte read once and each output byte written
-    once at the HBM rate, against its operations at the peak rates."""
+    ``planar``."""
+    work = WORK_F32[col] if planar.dtype == torch.float32 else WORK[col]
+    return bound_for(work, planar)
+
+
+def chain_work(cols, dtype: str):
+    """A chain's work per position of the plane, all planes together, as
+    ``WORK`` (uint8: multiply-adds, other operations) or ``WORK_F32``
+    (float32 operations) counts it: each stage on every plane, or once on
+    the luma for a Grayscale-first chain."""
+    gray, stages = chain._chain_stages(cols)
+    planes = 1 if gray else 3
+    mac = alu = ops = 0
+    for st in stages:
+        taps = int(np.count_nonzero(st.mask))
+        if st.kind == "conv":
+            mac, alu, ops = mac + taps, alu + 2, ops + 2 * taps - 1
+        elif st.kind == "min":
+            alu, ops = alu + taps, ops + taps
+        else:
+            alu, ops = alu + 1, ops + 1
+    if dtype == "float32":
+        return planes * ops + (5 if gray else 0)
+    return (planes * mac + (3 if gray else 0), planes * alu + (1 if gray
+                                                               else 0))
+
+
+def bound_for(work, planar: torch.Tensor) -> tuple[float, str]:
+    """(least ms, what bounds it) for ``work`` per position (as ``WORK``
+    or ``WORK_F32`` counts it) on ``planar``: each input byte read once
+    and each output byte written once at the HBM rate, against the
+    operations at the peak rates."""
     positions = planar.numel() // planar.shape[-3]
     if planar.dtype == torch.float32:
-        operations = WORK_F32[col] * positions / F32_OPS_S
+        operations = work * positions / F32_OPS_S
     else:
-        mac, alu = WORK[col]
+        mac, alu = work
         operations = max(2 * mac * positions / MAC_OPS_S,
                          alu * positions / ALU_OPS_S)
     times = {"bytes": 2 * planar.numel() * planar.element_size()
@@ -376,9 +467,139 @@ def compare_batched(model: Model, images, label) -> float:
     return err
 
 
-def drive_main_path(model: Model, img, label) -> dict:
-    """Run the port's CLI once at full size with the pipeline row in
-    ``model``'s data model; return that run's launch counts."""
+def chain_input(model: Model, img, cols):
+    """(layout, planar on the card) baked with the chain's halo, at least
+    2, as the session and the batch tool bake it."""
+    layout = make_layout(*img.shape[:2], pad=max(2, *chain.check_chain(cols)))
+    return layout, model.bake(img, layout).cuda()
+
+
+def make_chain(model: Model, layout, cols, batch: int = 0):
+    make = (chain.make_fused_chain_f32 if model.dtype == "float32"
+            else chain.make_fused_chain)
+    return make(layout, cols, batch=batch)
+
+
+def compare_chains(model: Model, sizes, variants, label) -> dict:
+    """Each chain's kernel against its plain version (whole buffer,
+    tolerance 0) and its sequential oracle (crop); C1 and C2 also on the
+    stack of ``variants`` in one launch. Returns the largest |kernel -
+    plain| per chain."""
+    errs = {name: 0.0 for name in CHECKED_CHAINS}
+    for size_label, img in sizes:
+        checked = []
+        for name, cols in CHECKED_CHAINS.items():
+            r = max(chain.check_chain(cols))
+            if min(img.shape[:2]) < 10 and r > 4:
+                continue
+            layout, planar = chain_input(model, img, cols)
+            got = make_chain(model, layout, cols)(planar)
+            plain = chain.fused_chain_plain(planar, cols, model.dtype)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], max_delta(got, plain))
+            check(torch.equal(got, plain),
+                  f"{model.dtype} chain {name} on {size_label}: kernel "
+                  f"differs from its plain version")
+            crop = model.crop(got, layout)
+            seq = chain.chain_row_parts(cols, model.dtype)[2]
+            off = oracle_delta(crop, seq(img))
+            check(off <= model.atol,
+                  f"{model.dtype} chain {name} on {size_label}: {off} "
+                  f"levels from the sequential oracle")
+            if name == "C2" and model.dtype == "uint8":
+                lay = make_layout(*img.shape[:2])
+                pipe = fused_pipeline(to_planar_padded(img, lay).cuda())
+                check(np.array_equal(crop, from_planar_padded(pipe, lay)),
+                      f"chain C2 on {size_label} differs from pipeline_u8")
+            checked.append(name)
+        print(f"  {model.dtype} {size_label}: chains {checked} equal to "
+              f"their plain versions, within {model.atol} of the oracle")
+    for name in ("C1", "C2"):
+        cols = CHAINS[name]
+        layout = make_layout(*variants[0].shape[:2],
+                             pad=max(2, *chain.check_chain(cols)))
+        stack = torch.stack([model.bake(im, layout) for im in variants])
+        stack = stack.cuda()
+        got = make_chain(model, layout, cols, batch=len(variants))(stack)
+        plain = chain.fused_chain_plain(stack, cols, model.dtype)
+        torch.cuda.synchronize()
+        errs[name] = max(errs[name], max_delta(got, plain))
+        check(torch.equal(got, plain),
+              f"{model.dtype} batched chain {name}: kernel differs from "
+              f"its plain version")
+        seq = chain.chain_row_parts(cols, model.dtype)[2]
+        for i, crop in enumerate(model.crop(got, layout)):
+            off = oracle_delta(crop, seq(variants[i]))
+            check(off <= model.atol, f"{model.dtype} batched chain {name}, "
+                                     f"image {i}: {off} levels off")
+        print(f"  {model.dtype} B={len(variants)} {label}: chain {name} "
+              f"equal to its plain version, within {model.atol} of the "
+              f"oracle, one launch")
+    return errs
+
+
+def morphology_input(model: Model, img):
+    layout = make_layout(*img.shape[:2])
+    return layout, model.bake(img, layout).cuda()
+
+
+def morphology_oracle(label: str, dtype: str, img, mask):
+    if dtype == "float32":
+        x = oracle_f32.erosion(oracle_f32.from_uint8_hwc(img), mask)
+        return oracle_f32.to_uint8_hwc(x)
+    fn = oracle.dilation if label.startswith("Dilation") else oracle.erosion
+    return fn(img, mask)
+
+
+def drive_morphology(models: dict, img) -> dict:
+    """The morphology library surface at full size, as a caller drives
+    it: each make_* function's op once, with the counts zeroed; each crop
+    against the oracle. ``models`` maps each dtype to its ``Model``.
+    Returns that run's launch counts."""
+    inputs = {d: morphology_input(m, img) for d, m in models.items()}
+    kernels.reset_launches()
+    outs = []
+    for label, dtype, make, mask, *_ in MORPHOLOGY:
+        layout, planar = inputs[dtype]
+        outs.append(make(layout, window.mask_to_taps(mask))(planar))
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    for (label, dtype, _, mask, name, *_), out in zip(MORPHOLOGY, outs):
+        layout, _ = inputs[dtype]
+        off = oracle_delta(models[dtype].crop(out, layout),
+                           morphology_oracle(label, dtype, img, mask))
+        check(off == 0, f"{dtype} {label}: {off} levels from the oracle")
+        check(counts.get(name, 0) >= 1, f"{name} was not launched")
+    print(f"  library surface at full size: every crop equal to the oracle; "
+          f"launches {counts}")
+    return counts
+
+
+def compare_morphology(models: dict, sizes) -> list[float]:
+    """Each morphology kernel against its plain version, whole buffer,
+    tolerance 0; the largest |kernel - plain| of each."""
+    errs = [0.0] * len(MORPHOLOGY)
+    for size_label, img in sizes:
+        for i, (label, dtype, make, mask, *_) in enumerate(MORPHOLOGY):
+            layout, planar = morphology_input(models[dtype], img)
+            taps = window.mask_to_taps(mask)
+            got = make(layout, taps)(planar)
+            reduce = (torch.maximum if label.startswith("Dilation")
+                      else torch.minimum)
+            plain = window.morphology_plain(planar, taps, reduce)
+            torch.cuda.synchronize()
+            errs[i] = max(errs[i], max_delta(got, plain))
+            check(torch.equal(got, plain), f"{dtype} {label} on "
+                  f"{size_label}: kernel differs from its plain version")
+        print(f"  {size_label}: {len(MORPHOLOGY)} morphology kernels equal "
+              f"to their plain versions")
+    return errs
+
+
+def drive_main_path(model: Model, img, label, fuse) -> dict:
+    """Run the port's CLI once at full size with the pipeline row and the
+    chain ``fuse`` in ``model``'s data model; return that run's launch
+    counts."""
     path = os.path.join(OUT, "benchmark-image.png")
     save_image(path, img)
     suffix = "" if model.dtype == "uint8" else "-" + model.dtype
@@ -391,46 +612,61 @@ def drive_main_path(model: Model, img, label) -> dict:
     kernels.reset_launches()
     with contextlib.redirect_stdout(buf):
         rc = cli.main([path, dumps, "--rounds", "50", "--verify",
-                       "--pipeline", "--dtype", model.dtype, "--csv", csv])
+                       "--pipeline", "--fuse", ",".join(fuse),
+                       "--dtype", model.dtype, "--csv", csv])
     counts = dict(kernels.LAUNCHES)
     text = buf.getvalue()
     print(text, end="")
     check(rc == 0, f"cli.main exited {rc}")
     rows = [ln for ln in text.splitlines() if ln.startswith("| ")]
-    check(len(rows) == 15, f"expected 15 table rows, got {len(rows)}")
-    prefixes = [p for _, p, _ in spec.OPERATION_MATRIX if p] + ["pipeline"]
+    check(len(rows) == 16, f"expected 16 table rows, got {len(rows)}")
+    prefixes = [p for _, p, _ in spec.OPERATION_MATRIX if p] + [
+        "pipeline", "chain"]
     names = [f"{p}-benchmark-image.png" for p in prefixes]
     missing = [n for n in names if not os.path.exists(os.path.join(dumps, n))]
-    check(len(names) == 13 and not missing, f"missing dumps {missing}")
+    check(len(names) == 14 and not missing, f"missing dumps {missing}")
     with open(csv) as f:
         lines = f.read().splitlines()
     check(lines[0] == spec.CSV_HEADER and len(lines) == 2
           and lines[1].startswith("H100-cuda,")
           and len(lines[1].split(",")) == len(spec.CSV_COLUMNS) + 1,
           f"bad CSV {lines}")
-    unused = [k for k, *_ in model.kernels.values() if counts.get(k, 0) < 1]
+    need = [k for k, *_ in model.kernels.values()]
+    need.append(CHAIN_KERNELS[model.dtype][0])
+    unused = [k for k in need if counts.get(k, 0) < 1]
     check(not unused, f"kernels not launched on the main path: {unused}")
-    print(f"  main path ({model.dtype}, {label}): rc 0, 15 rows, 13 dumps, "
+    print(f"  main path ({model.dtype}, {label}): rc 0, 16 rows, 14 dumps, "
           f"--verify passed; launches {counts}")
     return counts
 
 
-def drive_batch_tool(images, other) -> dict:
-    """Run the batch tool over a directory of ``images`` (one shape) and
-    ``other`` (another shape); return that run's launch counts."""
+def write_batch_inputs(images, other) -> tuple[str, dict]:
+    """A directory of ``images`` (one shape) and ``other`` (another)."""
     indir = os.path.join(OUT, "batch_in")
-    outdir = os.path.join(OUT, "batch_out")
-    for d in (indir, outdir):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(indir, ignore_errors=True)
     os.makedirs(indir)
     named = {f"img{i}.png": img for i, img in enumerate(images)}
     named["other.png"] = other
     for name, img in named.items():
         save_image(os.path.join(indir, name), img)
+    return indir, named
+
+
+def drive_batch_tool(indir: str, named: dict, cols=None) -> dict:
+    """Run the batch tool over ``indir`` with the fused pipeline, or with
+    ``--op`` the chain ``cols``; return that run's launch counts."""
+    outdir = os.path.join(OUT, "batch_out" if cols is None
+                          else "batch_out_chain")
+    shutil.rmtree(outdir, ignore_errors=True)
+    op = [] if cols is None else ["--op", ",".join(cols)]
+    if cols is None:
+        kernel, expect = "pipeline_u8", oracle.fused_pipeline
+    else:
+        kernel, expect = "chain_u8", chain.chain_row_parts(cols)[2]
     kernels.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as buf:
-        rc = batch.main([indir, outdir, "--batch-size", "8",
+        rc = batch.main([indir, outdir, "--batch-size", "8", *op,
                          "--backend", "cuda"])
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
@@ -439,14 +675,17 @@ def drive_batch_tool(images, other) -> dict:
           f"batch outputs {sorted(os.listdir(outdir))}")
     for name, img in named.items():
         check(np.array_equal(load_image(os.path.join(outdir, name)),
-                             oracle.fused_pipeline(img)),
+                             expect(img)),
               f"batch tool: {name} differs from the oracle")
-    check(counts.get("pipeline_u8", 0) >= 2,
-          f"batch tool launched pipeline_u8 {counts.get('pipeline_u8')} "
-          f"times, want one per shape group")
-    print(f"  batch tool: rc 0, {len(named)} images in {seconds:.2f} s "
-          f"(PNG decode and encode included), every output equal to the "
-          f"oracle; launches {counts} | {buf.getvalue().strip()}")
+    groups = len({img.shape for img in named.values()})
+    check(counts.get(kernel, 0) == groups,
+          f"batch tool launched {kernel} {counts.get(kernel)} times, want "
+          f"one per shape group ({groups})")
+    what = "pipeline" if cols is None else "--op " + ",".join(cols)
+    print(f"  batch tool ({what}): rc 0, {len(named)} images in "
+          f"{seconds:.2f} s (PNG decode and encode included), every output "
+          f"equal to the oracle; launches {counts} | "
+          f"{buf.getvalue().strip()}")
     return counts
 
 
@@ -550,6 +789,65 @@ def time_kernels(model: Model, img, errs: dict, counts: dict) -> list[dict]:
     return entries
 
 
+def time_chains(model: Model, img, unfused_ms: dict, errs: dict,
+                counts: dict) -> list[dict]:
+    """Chain kernel and plain device time of every chain on its R-halo
+    full-size planar, beside the summed device times of the port's unfused
+    kernels for the same ops (``unfused_ms``, by column)."""
+    name, where, tpu_name = CHAIN_KERNELS[model.dtype]
+    entries = []
+    for cname, cols in CHAINS.items():
+        layout, planar = chain_input(model, img, cols)
+        fn = make_chain(model, layout, cols).prepare(planar.device)
+        ms, plain_ms = timed([fn, lambda p, c=cols: chain.fused_chain_plain(
+            p, c, model.dtype)], planar)
+        unfused = sum(unfused_ms[c] for c in cols)
+        bound_ms, bound_by = bound_for(chain_work(cols, model.dtype), planar)
+        print(f"    {cname} R={layout.pad} {name:10s} kernel {ms:9.4f} ms | "
+              f"plain {plain_ms:9.4f} ms | unfused kernels {unfused:9.4f} ms"
+              f" | bound {bound_ms:.4f} ms ({bound_by}) | {','.join(cols)}")
+        entries.append({
+            "name": name, "dtype": model.dtype,
+            "op": f"{cname} {','.join(cols)}", "route": "cuda",
+            "source": CSRC + "chain.cu",
+            "replaces": "dip_benchmark_tpu/" + where,
+            "tpu_kernel": tpu_name, "launches": counts.get(name, 0),
+            "max_abs_err": errs[cname], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "unfused_ms": unfused})
+    return entries
+
+
+def time_morphology(models: dict, img, errs: list,
+                    counts: dict) -> list[dict]:
+    """Kernel and plain device time of each morphology kernel at full
+    size; no library call (see LIBRARY)."""
+    entries = []
+    for (label, dtype, make, mask, name, where, tpu_name), err in zip(
+            MORPHOLOGY, errs):
+        layout, planar = morphology_input(models[dtype], img)
+        taps = window.mask_to_taps(mask)
+        reduce = (torch.maximum if label.startswith("Dilation")
+                  else torch.minimum)
+        ms, plain_ms = timed([make(layout, taps), lambda p: (
+            window.morphology_plain(p, taps, reduce))], planar)
+        n = 3 * len(taps)
+        bound_ms, bound_by = bound_for(n if dtype == "float32" else (0, n),
+                                       planar)
+        print(f"    {label:24s} {name:28s} kernel {ms:9.4f} ms | plain "
+              f"{plain_ms:9.4f} ms | library none | bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        entries.append({
+            "name": name, "dtype": dtype, "op": label, "route": "cuda",
+            "source": CSRC + ("f32.cu" if dtype == "float32"
+                              else "window.cu"),
+            "replaces": "dip_benchmark_tpu/" + where, "tpu_kernel": tpu_name,
+            "launches": counts.get(name, 0), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -595,16 +893,35 @@ def main() -> int:
             e["Fused-Pipeline"],
             compare_batched(model, variants[5:], f"B=3 {label} variants"))
         errs[model.dtype] = e
+    chain_errs = {}
+    for model in (u8, f32):
+        print(f"[3c] {model.dtype} fused chains: kernel against plain "
+              f"version, tolerance 0; crop within {model.atol} of the "
+              f"sequential oracle")
+        chain_errs[model.dtype] = compare_chains(
+            model, sizes[:2] + [("random 9x9", rng.integers(
+                0, 256, (9, 9, 3), np.uint8))], variants[5:],
+            f"{label} variants")
+    print("[3d] morphology library surface: driven at full size, then "
+          "kernel against plain version, tolerance 0")
+    models = {"uint8": u8, "float32": f32}
+    morph_counts = drive_morphology(models, img)
+    morph_errs = compare_morphology(models, sizes[:2])
 
     counts = {}
+    fuse = {"uint8": CHAINS["C1"], "float32": CHAINS["C2"]}
     for model, tag in ((u8, "4"), (f32, "4f")):
         print(f"[{tag}] main path: dip_benchmark_tpu_torch.cli.main "
-              f"--dtype {model.dtype} --pipeline")
-        counts[model.dtype] = drive_main_path(model, img, label)
+              f"--dtype {model.dtype} --pipeline --fuse "
+              f"{','.join(fuse[model.dtype])}")
+        counts[model.dtype] = drive_main_path(model, img, label,
+                                              fuse[model.dtype])
 
     print("[5] batch tool: dip_benchmark_tpu_torch.models.batch.main")
     other = np.ascontiguousarray(img[: h // 2, : w // 3])
-    batch_counts = drive_batch_tool(variants, other)
+    indir, named = write_batch_inputs(variants, other)
+    batch_counts = drive_batch_tool(indir, named)
+    chain_batch_counts = drive_batch_tool(indir, named, CHAINS["C3"])
 
     def timing_header(tag, model):
         print(f"[{tag}] {model.dtype} device time, median of "
@@ -624,12 +941,23 @@ def main() -> int:
     # No TF32 in the F.conv2d yardsticks: full float32, like the kernels.
     torch.backends.cudnn.allow_tf32 = False
     entries += time_kernels(f32, img, errs["float32"], counts["float32"])
+    print(f"[6c] fused chains and morphology, device time, median of "
+          f"{TIMED_LAUNCHES} launches each, CUDA events, {label} | {smi}")
+    for model in (u8, f32):
+        unfused = {e["op"]: e["ms"] for e in entries
+                   if e["dtype"] == model.dtype}
+        entries += time_chains(model, img, unfused, chain_errs[model.dtype],
+                               counts[model.dtype])
+    entries += time_morphology(models, img, morph_errs, morph_counts)
 
-    check(len(entries) == 26, f"{len(entries)} kernel entries, want 26")
+    want = 26 + 2 * len(CHAINS) + len(MORPHOLOGY)
+    check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
     summary = {"kernels": entries}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump({**summary, "serving": serving, "batch_tool_launches":
-                   batch_counts, "main_path_launches": counts,
+                   batch_counts, "chain_batch_tool_launches":
+                   chain_batch_counts, "morphology_launches": morph_counts,
+                   "main_path_launches": counts,
                    "nvidia_smi": smi, "image": label}, f, indent=1)
     print(json.dumps(summary))
     print(smi)

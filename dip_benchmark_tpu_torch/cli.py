@@ -3,18 +3,21 @@
 The port of ``dip_benchmark_tpu/cli.py`` for the kernel path, both data
 models: positional infile and outdir, rounds as a flag or a third
 positional, default 10000, the device gate (exit 4 when no CUDA device is
-found), the device banner, then the 14-row table (15 with
-``--pipeline``), the image dumps, an optional CSV row and an optional
-check against the oracle: bit-exact for uint8, within 1 level plus the
-pipeline's don't-care mask for ``--dtype float32``.
+found), the device banner, then the 14-row table (one more row each
+for ``--pipeline`` and ``--fuse``), the image dumps, an optional CSV row
+and an optional check against the oracle: bit-exact for uint8, within 1
+level plus the don't-care mask of a threshold on a computed value for
+``--dtype float32``.
 
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N --verify
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N --pipeline
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
         --dtype float32 --verify --pipeline
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
+        --verify --fuse Convolution-5x5,Inversion,Convolution-3x3
 
 Exit codes: 0 ok, 2 refused input (argparse errors, too small an image,
-a foreign CSV), 4 no device for --backend.
+a chain ``--fuse`` cannot run, a foreign CSV), 4 no device for --backend.
 """
 
 from __future__ import annotations
@@ -79,6 +82,12 @@ def build_parser() -> ArgumentParser:
                         help="Add a 15th row: the fused "
                              "grayscale+threshold+erosion+blur pipeline "
                              "as a single kernel")
+    parser.add_argument("--fuse", metavar="COL,COL,...", default=None,
+                        help="Add a row running an op chain fused into one "
+                             "kernel (models/chain.py): comma-separated CSV "
+                             "column names, e.g. 'Grayscale,Threshold,"
+                             "Erosion-3x3-Square'; Grayscale only first, "
+                             "total radius at most 8")
     parser.add_argument("--mem-rounds", type=int, default=None, metavar="N",
                         help="Round count override for the host-transfer "
                              "ops (Upload/Download) only; each row prints "
@@ -115,6 +124,13 @@ def main(argv: list[str] | None = None) -> int:
     overrides = ({"Upload": args.mem_rounds, "Download": args.mem_rounds}
                  if args.mem_rounds is not None else None)
     table = session.operations(include_pipeline=args.pipeline)
+    if args.fuse:
+        try:
+            table.append(session.chain_operation(
+                [c.strip() for c in args.fuse.split(",") if c.strip()]))
+        except ValueError as e:
+            print(f"--fuse: {e}", file=sys.stderr)
+            return 2
     runner = BenchmarkRunner(table, rounds=rounds, stats=args.stats,
                              warmup=args.warmup, rounds_override=overrides)
     runner.run(filename=filename, outdir=args.outdir,

@@ -229,6 +229,13 @@ def gaussian_blur_3x3(planar: torch.Tensor) -> torch.Tensor:
                                  planar)
 
 
+def make_erosion(layout, taps):
+    """Min over any structuring element ``taps`` on the float32 layout
+    (the JAX package's ``_make_erosion``), routed as
+    ``window.make_morphology`` routes the uint8 one."""
+    return window.make_morphology(layout, taps, "min", "float32")
+
+
 def fused_pipeline(planar: torch.Tensor) -> torch.Tensor:
     """Grayscale, threshold, 3x3 square erosion and blur in one launch,
     on one image ``(3, Hp, pitch)`` or a stack ``(B, 3, Hp, pitch)``."""

@@ -9,6 +9,7 @@
 //   grayscale_f32              <- _grayscale
 //   window_f32<Body>           <- window.py _windowed_call (dtype=f32)
 //     MinRect, MinPlus         <- _make_erosion (body_rect, body_plus)
+//     Taps                     <- _make_erosion (body_generic)
 //     MinSep                   <- _make_erosion_sep
 //     ConvDense<KH, KW>        <- _make_conv
 //     ConvSep<N>               <- _make_conv_sep
@@ -145,6 +146,36 @@ struct MinSep {  // 3x1 column min, then 1x3 min over the column mins
   }
 };
 
+// Erosion by any structuring element of radius <= kMaxTapRadius, by value:
+// bit dx + kMaxTapRadius of rows[dy + kMaxTapRadius] is set for each tap
+// (dy, dx), visited row by row in ascending dx as body_generic visits them
+// (a min is exact in any order). Its ring, the element's largest |dy| and
+// |dx|, is known only at run time.
+constexpr int kMaxTapRadius = 8;
+struct Taps {
+  int hy, hx;
+  uint32_t rows[2 * kMaxTapRadius + 1];
+  __device__ float operator()(const Plane& in, int y, int x) const {
+    float m = __int_as_float(0x7f800000);  // +inf
+#pragma unroll
+    for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) {
+      for (uint32_t b = rows[r]; b != 0; b &= b - 1)
+        m = fminf(m, in.at(y + r - kMaxTapRadius,
+                           x + __ffs(b) - 1 - kMaxTapRadius));
+    }
+    return m;
+  }
+};
+
+// The ring of HY rows and HX columns where a body writes 0: compiled in,
+// or for Taps the element's own.
+template <class Body>
+__device__ int ring_y(const Body&) { return Body::HY; }
+template <class Body>
+__device__ int ring_x(const Body&) { return Body::HX; }
+__device__ int ring_y(const Taps& b) { return b.hy; }
+__device__ int ring_x(const Taps& b) { return b.hx; }
+
 // Dense KH x KW correlation with a runtime float mask (row-major): for each
 // mask column kx, col = sum over ky ascending of x[ky][kx] * m[ky][kx],
 // then acc = sum over kx ascending of col. No rounding to u8.
@@ -216,9 +247,9 @@ __global__ void window_f32(const float* __restrict__ in,
   if (x >= pitch || y >= hp) return;
   const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
   const Plane src{in + plane, pitch};
+  const int hy = ring_y(body), hx = ring_x(body);
   float v = 0.0f;
-  if (y >= Body::HY && y < hp - Body::HY && x >= Body::HX &&
-      x < pitch - Body::HX)
+  if (y >= hy && y < hp - hy && x >= hx && x < pitch - hx)
     v = body(src, y, x);
   out[plane + static_cast<size_t>(y) * pitch + x] = v;
 }
@@ -411,6 +442,20 @@ DIP_API int dip_erosion_sep_f32(const void* in, void* out, int channels,
 DIP_API int dip_blur3x3_f32(const void* in, void* out, int channels, int hp,
                             int pitch, void* stream) {
   return launch_window(in, out, channels, hp, pitch, Blur3x3{}, stream);
+}
+
+// Any structuring element: rows holds 2 * 8 + 1 row bitmasks (Taps), hy and
+// hx its largest |dy| and |dx|.
+DIP_API int dip_erosion_taps_f32(const void* in, void* out, int channels,
+                                 int hp, int pitch, int hy, int hx,
+                                 const unsigned* rows, void* stream) {
+  if (hy < 0 || hy > kMaxTapRadius || hx < 0 || hx > kMaxTapRadius)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Taps body;
+  body.hy = hy;
+  body.hx = hx;
+  for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) body.rows[r] = rows[r];
+  return launch_window(in, out, channels, hp, pitch, body, stream);
 }
 
 // kh x kw is 3x3 or 5x5; w holds kh * kw float weights in row-major order.

@@ -1,10 +1,16 @@
 // Windowed kernels of the uint8 benchmark matrix: erosions, convolutions
-// and the specialised 3x3 blur, as one stencil skeleton window_u8<Body>.
+// and the specialised 3x3 blur, as one stencil skeleton window_u8<Body>;
+// and the library surface's morphology: dilation and any structuring
+// element.
 //
 // Replaces (dip_benchmark_tpu/ops/pallas/window.py):
 //   window_u8<Body>           <- _windowed_call (the banded DMA skeleton)
 //   MinPlus, MinRect          <- _make_morphology via make_erosion
 //                                (body_plus, body_rect)
+//   MaxPlus, MaxRect          <- _make_morphology via make_dilation
+//                                (body_plus, body_rect with max)
+//   Taps<Min>, Taps<Max>      <- body_generic of _make_morphology, via
+//                                make_erosion and make_dilation
 //   MinSep                    <- make_erosion_separated_fused
 //   ConvDense<KH, KW>         <- make_convolution (body_rank1)
 //   ConvSep<N>                <- make_convolution_separated_fused
@@ -126,6 +132,70 @@ struct ConvSep {
   }
 };
 
+struct MaxRect {  // 3x3 square dilation
+  static constexpr int HY = 1, HX = 1;
+  __device__ int operator()(const Plane& in, int y, int x) const {
+    int m = 0;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) m = max(m, in.at(y + dy, x + dx));
+    return m;
+  }
+};
+
+struct MaxPlus {  // 3x3 cross dilation
+  static constexpr int HY = 1, HX = 1;
+  __device__ int operator()(const Plane& in, int y, int x) const {
+    int m = max(in.at(y - 1, x), in.at(y + 1, x));
+    m = max(m, max(in.at(y, x - 1), in.at(y, x + 1)));
+    return max(m, in.at(y, x));
+  }
+};
+
+struct Min {
+  static constexpr int kIdentity = 255;
+  __device__ static int apply(int a, int b) { return min(a, b); }
+};
+
+struct Max {
+  static constexpr int kIdentity = 0;
+  __device__ static int apply(int a, int b) { return max(a, b); }
+};
+
+// Any structuring element of radius <= kMaxTapRadius, by value: bit
+// dx + kMaxTapRadius of rows[dy + kMaxTapRadius] is set for each tap
+// (dy, dx). The taps are visited row by row, each row in ascending dx, as
+// body_generic visits them (min and max are exact in any order). Its ring
+// is the element's largest |dy| and |dx|, known only at run time.
+constexpr int kMaxTapRadius = 8;
+template <class Op>
+struct Taps {
+  int hy, hx;
+  uint32_t rows[2 * kMaxTapRadius + 1];
+  __device__ int operator()(const Plane& in, int y, int x) const {
+    int acc = Op::kIdentity;
+#pragma unroll
+    for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) {
+      for (uint32_t m = rows[r]; m != 0; m &= m - 1)
+        acc = Op::apply(acc, in.at(y + r - kMaxTapRadius,
+                                   x + __ffs(m) - 1 - kMaxTapRadius));
+    }
+    return acc;
+  }
+};
+
+// The ring of HY rows and HX columns where a body writes 0: compiled in,
+// or for Taps the element's own.
+template <class Body>
+__device__ int ring_y(const Body&) { return Body::HY; }
+template <class Body>
+__device__ int ring_x(const Body&) { return Body::HX; }
+template <class Op>
+__device__ int ring_y(const Taps<Op>& b) { return b.hy; }
+template <class Op>
+__device__ int ring_x(const Taps<Op>& b) { return b.hx; }
+
 // Op #14: 1-2-1 x 1-2-1 with the weights compiled in, vertical pass first,
 // one rounding (o + 8) >> 4. The sum is at most 255 * 16, so no clamp.
 struct Blur3x3 {
@@ -152,9 +222,9 @@ __global__ void window_u8(const uint8_t* __restrict__ in,
   if (x >= pitch || y >= hp) return;
   const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
   const Plane src{in + plane, pitch};
+  const int hy = ring_y(body), hx = ring_x(body);
   int v = 0;
-  if (y >= Body::HY && y < hp - Body::HY && x >= Body::HX &&
-      x < pitch - Body::HX)
+  if (y >= hy && y < hp - hy && x >= hx && x < pitch - hx)
     v = body(src, y, x);
   out[plane + static_cast<size_t>(y) * pitch + x] = static_cast<uint8_t>(v);
 }
@@ -190,6 +260,18 @@ int launch_conv_sep(const void* in, void* out, int channels, int hp,
     body.wc[i] = wc[i];
   }
   body.shift = shift;
+  return launch_window(in, out, channels, hp, pitch, body, stream);
+}
+
+template <class Op>
+int launch_taps(const void* in, void* out, int channels, int hp, int pitch,
+                int hy, int hx, const unsigned* rows, void* stream) {
+  if (hy < 0 || hy > kMaxTapRadius || hx < 0 || hx > kMaxTapRadius)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Taps<Op> body;
+  body.hy = hy;
+  body.hx = hx;
+  for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) body.rows[r] = rows[r];
   return launch_window(in, out, channels, hp, pitch, body, stream);
 }
 
@@ -240,4 +322,28 @@ DIP_API int dip_conv_sep_u8(const void* in, void* out, int channels, int hp,
     return launch_conv_sep<5>(in, out, channels, hp, pitch, wr, wc, shift,
                               stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+DIP_API int dip_dilation_rect_u8(const void* in, void* out, int channels,
+                                 int hp, int pitch, void* stream) {
+  return launch_window(in, out, channels, hp, pitch, MaxRect{}, stream);
+}
+
+DIP_API int dip_dilation_plus_u8(const void* in, void* out, int channels,
+                                 int hp, int pitch, void* stream) {
+  return launch_window(in, out, channels, hp, pitch, MaxPlus{}, stream);
+}
+
+// Any structuring element: rows holds 2 * 8 + 1 row bitmasks (Taps), hy and
+// hx its largest |dy| and |dx|.
+DIP_API int dip_erosion_taps_u8(const void* in, void* out, int channels,
+                                int hp, int pitch, int hy, int hx,
+                                const unsigned* rows, void* stream) {
+  return launch_taps<Min>(in, out, channels, hp, pitch, hy, hx, rows, stream);
+}
+
+DIP_API int dip_dilation_taps_u8(const void* in, void* out, int channels,
+                                 int hp, int pitch, int hy, int hx,
+                                 const unsigned* rows, void* stream) {
+  return launch_taps<Max>(in, out, channels, hp, pitch, hy, hx, rows, stream);
 }

@@ -10,6 +10,17 @@ Each op has a wrapper that launches ``window_u8<Body>`` (``kernels/csrc/
 window.cu``) for a tensor on the card, and a plain PyTorch version
 (``*_plain``) of the same whole-buffer function that the wrapper takes
 only for a tensor on the CPU.
+
+Beside the op matrix, the JAX package's library surface for morphology:
+``make_erosion(layout, taps)`` and ``make_dilation(layout, taps)`` build
+the min or max over any structuring element (``mask_to_taps``) whose
+radius fits the layout's halo. As in the JAX package they are routed by
+the element's structure (``_tap_structure``): the 3x3 square and cross,
+whose extent the kernels compile in, go to ``MinRect``/``MaxRect`` and
+``MinPlus``/``MaxPlus``; any other element, rectangles and plus shapes of
+other sizes included, to ``Taps<Min>``/``Taps<Max>``, which take the
+element by value as 17 row bitmasks (radius up to ``MAX_TAP_RADIUS``).
+The ring is the element's largest ``|dy|`` rows and ``|dx|`` columns.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from . import kernels
 
 CONV_DENSE_SIZES = (3, 5)   # square mask sizes window.cu builds
 CONV_SEP_SIZES = (3, 5)
+MAX_TAP_RADIUS = 8          # window.cu and f32.cu kMaxTapRadius
 # Structuring element -> (kernel name, C entry point) in window.cu.
 EROSION_KERNELS = (
     (spec.CROSS_MASK_3X3, "window_u8<MinPlus>", "dip_erosion_plus_u8"),
@@ -51,12 +63,16 @@ def _framed(core: torch.Tensor, planar: torch.Tensor, hy: int,
     return out
 
 
-def zero_ring(out: torch.Tensor, r: int) -> torch.Tensor:
-    """``out`` with its outer ``r`` rows and columns set to 0, in place."""
-    out[..., :r, :] = 0
-    out[..., -r:, :] = 0
-    out[..., :r] = 0
-    out[..., -r:] = 0
+def zero_ring(out: torch.Tensor, ry: int, rx: int | None = None
+              ) -> torch.Tensor:
+    """``out`` with its outer ``ry`` rows and ``rx`` columns (``rx``
+    defaults to ``ry``; either may be 0) set to 0, in place."""
+    rx = ry if rx is None else rx
+    hp, pitch = out.shape[-2:]
+    out[..., :ry, :] = 0
+    out[..., hp - ry:, :] = 0
+    out[..., :rx] = 0
+    out[..., pitch - rx:] = 0
     return out
 
 
@@ -67,13 +83,7 @@ def _round(acc: torch.Tensor, shift: int) -> torch.Tensor:
 
 def erosion_plain(planar: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
     """Per-channel min over the taps of structuring element ``mask``."""
-    mh, mw = mask.shape
-    hy, hx = mh // 2, mw // 2
-    core = None
-    for my, mx in zip(*np.nonzero(mask)):
-        t = _tap(planar, hy, hx, int(my) - hy, int(mx) - hx)
-        core = t if core is None else torch.minimum(core, t)
-    return _framed(core, planar, hy, hx)
+    return morphology_plain(planar, mask_to_taps(mask), torch.minimum)
 
 
 def erosion_sep_plain(planar: torch.Tensor) -> torch.Tensor:
@@ -200,3 +210,109 @@ def gaussian_blur_3x3(planar: torch.Tensor) -> torch.Tensor:
     if kernels.on_cpu(planar):
         return blur3x3_plain(planar)
     return _launch_window("window_u8<Blur3x3>", "dip_blur3x3_u8", planar)
+
+
+# -- the morphology library surface ----------------------------------------
+
+def mask_to_taps(mask: np.ndarray) -> tuple[tuple[int, int], ...]:
+    """The (dy, dx) offsets of a structuring element's set cells."""
+    mh, mw = mask.shape
+    return tuple((my - mh // 2, mx - mw // 2)
+                 for my in range(mh) for mx in range(mw) if mask[my, mx])
+
+
+def _tap_structure(taps: tuple[tuple[int, int], ...]) -> str:
+    s = set(taps)
+    dys = sorted({dy for dy, _ in taps})
+    dxs = sorted({dx for _, dx in taps})
+    if s == {(dy, dx) for dy in dys for dx in dxs}:
+        return "rect"
+    if (0, 0) in s and s == {(dy, 0) for dy in dys} | {(0, dx) for dx in dxs}:
+        return "plus"
+    return "generic"
+
+
+def morphology_plain(planar: torch.Tensor, taps, reduce) -> torch.Tensor:
+    """``reduce`` (``torch.minimum`` or ``torch.maximum``) over the taps,
+    0 in the ring of the largest ``|dy|`` rows and ``|dx|`` columns."""
+    hy = max(abs(dy) for dy, _ in taps)
+    hx = max(abs(dx) for _, dx in taps)
+    core = None
+    for dy, dx in sorted(taps):
+        t = _tap(planar, hy, hx, dy, dx)
+        core = t if core is None else reduce(core, t)
+    return _framed(core, planar, hy, hx)
+
+
+# (dtype, reduce, body) -> (kernel name, C entry point).
+MORPHOLOGY_KERNELS = {
+    ("uint8", "min", "rect"): ("window_u8<MinRect>", "dip_erosion_rect_u8"),
+    ("uint8", "min", "plus"): ("window_u8<MinPlus>", "dip_erosion_plus_u8"),
+    ("uint8", "min", "taps"): ("window_u8<Taps<Min>>",
+                               "dip_erosion_taps_u8"),
+    ("uint8", "max", "rect"): ("window_u8<MaxRect>", "dip_dilation_rect_u8"),
+    ("uint8", "max", "plus"): ("window_u8<MaxPlus>", "dip_dilation_plus_u8"),
+    ("uint8", "max", "taps"): ("window_u8<Taps<Max>>",
+                               "dip_dilation_taps_u8"),
+    ("float32", "min", "rect"): ("window_f32<MinRect>",
+                                 "dip_erosion_rect_f32"),
+    ("float32", "min", "plus"): ("window_f32<MinPlus>",
+                                 "dip_erosion_plus_f32"),
+    ("float32", "min", "taps"): ("window_f32<Taps<Min>>",
+                                 "dip_erosion_taps_f32"),
+}
+
+
+def make_morphology(layout, taps, reduce: str, dtype: str = "uint8"):
+    """The min (``reduce="min"``) or max over structuring element ``taps``
+    on ``layout``: a function of the ``(C, Hp, pitch)`` tensor of
+    ``dtype`` that returns a tensor of the same layout."""
+    taps = tuple((int(dy), int(dx)) for dy, dx in taps)
+    if not taps:
+        raise ValueError("empty structuring element")
+    hy = max(abs(dy) for dy, _ in taps)
+    hx = max(abs(dx) for _, dx in taps)
+    if hy > layout.pad or hx > layout.pad:
+        raise ValueError(
+            f"structuring element radius (ry={hy}, rx={hx}) exceeds the "
+            f"layout halo (pad={layout.pad}); build the layout with "
+            f"pad={max(hy, hx)}")
+    body = _tap_structure(taps)
+    extent = ({dy for dy, _ in taps} == {-1, 0, 1}
+              and {dx for _, dx in taps} == {-1, 0, 1})
+    if body == "generic" or not extent:
+        body = "taps"
+    if body == "taps" and max(hy, hx) > MAX_TAP_RADIUS:
+        raise ValueError(f"structuring element radius {max(hy, hx)} "
+                         f"exceeds the kernels' {MAX_TAP_RADIUS}")
+    name, entry = MORPHOLOGY_KERNELS[(dtype, reduce, body)]
+    torch_dtype = torch.float32 if dtype == "float32" else torch.uint8
+    rows = [0] * (2 * MAX_TAP_RADIUS + 1)
+    for dy, dx in taps:
+        rows[dy + MAX_TAP_RADIUS] |= 1 << (dx + MAX_TAP_RADIUS)
+    extra = ((hy, hx, (ctypes.c_uint * len(rows))(*rows))
+             if body == "taps" else ())
+    plain_reduce = torch.minimum if reduce == "min" else torch.maximum
+
+    def op(planar: torch.Tensor) -> torch.Tensor:
+        kernels.check_planar(planar, dtype=torch_dtype)
+        if tuple(planar.shape) != layout.shape:
+            raise ValueError(f"built for {layout.shape}, got "
+                             f"{tuple(planar.shape)}")
+        if kernels.on_cpu(planar):
+            return morphology_plain(planar, taps, plain_reduce)
+        return _launch_window(name, entry, planar, *extra)
+
+    op.kernel = name
+    return op
+
+
+def make_erosion(layout, taps):
+    """Per-channel min over ``taps`` (the JAX package's ``make_erosion``)."""
+    return make_morphology(layout, taps, "min")
+
+
+def make_dilation(layout, taps):
+    """Per-channel max over ``taps`` (the JAX package's ``make_dilation``),
+    with the layout's mirror borders like every op here."""
+    return make_morphology(layout, taps, "max")

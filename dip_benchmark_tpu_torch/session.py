@@ -21,6 +21,7 @@ import torch
 
 from . import oracle, oracle_f32, spec
 from .harness import Operation
+from .models import chain
 from .ops import OPS, OPS_F32, kernels
 from .runtime import synchronize
 from .utils.image import (check_uint8_hwc, from_planar_padded,
@@ -53,6 +54,7 @@ class BenchmarkSession:
         if self.device.type == "cuda":
             kernels.load()
         self._sample: torch.Tensor | None = None
+        self._extra_oracles: dict = {}  # the chain rows' own oracles
         f32 = dtype == "float32"
         self._ops = OPS_F32 if f32 else OPS
         self._crop = from_planar_padded_f32 if f32 else from_planar_padded
@@ -68,8 +70,9 @@ class BenchmarkSession:
         self.image_dev = self._upload()
         h, w, c = host_image.shape
         self.layout = make_layout(h, w, c)
-        bake = to_planar_padded_f32 if f32 else to_planar_padded
-        self.planar_dev = bake(self.host_image, self.layout).to(self.device)
+        self._bake = to_planar_padded_f32 if f32 else to_planar_padded
+        self.planar_dev = self._bake(self.host_image,
+                                     self.layout).to(self.device)
         synchronize(self.device)
 
     @property
@@ -126,6 +129,40 @@ class BenchmarkSession:
             "Fused-Pipeline", self._make_run(self._ops["Fused-Pipeline"]),
             self._fetch_output)
 
+    def chain_operation(self, cols: list[str]) -> Operation:
+        """Extra benchmark row: an arbitrary op chain (``models/chain.py``)
+        as one kernel launch, the user-composable generalization of the
+        pipeline row; no CSV column. When the chain's radius exceeds the
+        session layout's halo, a deeper-halo planar is baked and put on the
+        device here, outside the timed loop, like the initial upload."""
+        ry, rx = chain.check_chain(cols)
+        r = max(ry, rx)
+        if r <= self.layout.pad:
+            layout, planar = self.layout, self.planar_dev
+        else:
+            h, w, c = self.host_image.shape
+            if min(h, w) < r + 1:
+                # spec.mirror_index is only defined for offsets <= dim - 1.
+                raise ValueError(
+                    f"image {h}x{w} is too small for a radius-{r} fused "
+                    f"chain (mirror halo needs both dims >= {r + 1}); "
+                    f"shorten the chain or run the ops sequentially")
+            layout = make_layout(h, w, c, pad=r)
+            planar = self._bake(self.host_image, layout).to(self.device)
+            synchronize(self.device)
+        make = (chain.make_fused_chain_f32 if self.dtype == "float32"
+                else chain.make_fused_chain)
+        fn = make(layout, cols).prepare(self.device)
+
+        def run():
+            self._sample = fn(planar)
+            synchronize(self.device)
+
+        desc, col, seq_oracle = chain.chain_row_parts(cols, dtype=self.dtype)
+        self._extra_oracles[col] = seq_oracle
+        return Operation(desc, "chain", col, run,
+                         lambda: self._crop(self._sample, layout))
+
     def _fetch_output(self) -> np.ndarray:
         return self._crop(self._sample, self.layout)
 
@@ -135,7 +172,8 @@ class BenchmarkSession:
     def oracle_ops(self) -> dict:
         """The golden ops for --verify, uint8 HWC in and out: the port's
         NumPy oracle, or for float32 its f32 oracle quantized, whose
-        Fused-Pipeline may return (expected, dontcare-mask)."""
-        if self.dtype == "float32":
-            return oracle_f32.uint8_verify_ops()
-        return oracle.IMAGE_OPS
+        Fused-Pipeline may return (expected, dontcare-mask); merged with
+        the chain rows' sequential oracles."""
+        base = (oracle_f32.uint8_verify_ops() if self.dtype == "float32"
+                else oracle.IMAGE_OPS)
+        return {**base, **self._extra_oracles}

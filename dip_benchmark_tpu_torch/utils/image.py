@@ -196,8 +196,10 @@ def from_planar_padded_f32(planar: torch.Tensor,
     return np.clip(np.rint(x * np.float32(255)), 0, 255).astype(np.uint8)
 
 
-def from_jax_planar(arr: np.ndarray, jax_layout) -> torch.Tensor:
-    """Re-cut the JAX package's planar array into the port's layout.
+def from_jax_planar(arr: np.ndarray, jax_layout,
+                    pad: int = DEFAULT_HALO) -> torch.Tensor:
+    """Re-cut the JAX package's planar array into the port's layout
+    ``make_layout(h, w, c, pad=pad)``.
 
     ``arr`` is a ``(C, Hp, Wp)`` array from
     ``dip_benchmark_tpu.utils.image.to_planar_padded`` or
@@ -205,12 +207,13 @@ def from_jax_planar(arr: np.ndarray, jax_layout) -> torch.Tensor:
     a ``(B, C, Hp, Wp)`` stack of them; its dtype is kept. Both layouts
     bake the same mirror and slack rules relative to the image origin, so
     the port's buffer is the window of ``pad`` rows and columns around the
-    image, ``pitch`` columns wide. A JAX f32 layout
-    (``make_layout(..., itemsize=4)``) has another band and so another
-    height; the window is cut the same way.
+    image, ``pitch`` columns wide; ``pad`` may be at most the JAX layout's
+    halo (a chain of radius R needs a JAX bake with ``halo=R``). A JAX f32
+    layout (``make_layout(..., itemsize=4)``) has another band and so
+    another height; the window is cut the same way.
     """
     layout = make_layout(jax_layout.height, jax_layout.width,
-                         jax_layout.channels)
+                         jax_layout.channels, pad)
     y0 = jax_layout.pad_y - layout.pad
     x0 = jax_layout.pad_x - layout.pad
     if arr.ndim not in (3, 4):

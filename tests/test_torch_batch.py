@@ -149,9 +149,9 @@ def test_main_single_op(tmp_path):
 
 
 @pytest.mark.parametrize("args, says", [
-    (["--shards", "2"], "item 8"),
-    (["--data-shards", "2"], "item 8"),
-    (["--op", "Grayscale,Threshold"], "item 6"),
+    (["--shards", "2"], "row sharding is not ported yet"),
+    (["--data-shards", "2"], "row sharding is not ported yet"),
+    (["--op", "Inversion,Grayscale"], "--op chain"),
     (["--op", "Upload"], "--op must be one of"),
     (["--batch-size", "0"], "--batch-size"),
 ])

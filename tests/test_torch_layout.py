@@ -3,13 +3,15 @@ carry-across of the JAX package's planar buffer (from_jax_planar)."""
 
 import numpy as np
 import pytest
+import torch
 
 from dip_benchmark_tpu.utils import image as jax_image
 from dip_benchmark_tpu_torch.utils.image import (PITCH_ALIGN, from_jax_planar,
                                                  from_planar_padded,
                                                  make_layout,
                                                  stack_planar_padded,
-                                                 to_planar_padded)
+                                                 to_planar_padded,
+                                                 to_planar_padded_f32)
 
 FIXTURES = ("small_image", "gradient_image", "fundus_crop")
 
@@ -66,6 +68,29 @@ def test_from_jax_planar_equals_port_planar(fixture, request):
     assert recut.is_contiguous()
     assert recut.dtype == own.dtype and recut.shape == own.shape
     assert bool((recut == own).all())
+
+
+@pytest.mark.parametrize("pad", [4, 2, 0])
+def test_from_jax_planar_recuts_a_deeper_halo(pad, small_image):
+    # A chain of radius 4 runs on a JAX bake with halo=4; the port's window
+    # of any pad up to that halo is its own bake with that pad.
+    h, w = small_image.shape[:2]
+    jax_layout = jax_image.make_layout(h, w, halo=4)
+    jax_planar = jax_image.to_planar_padded(small_image, jax_layout)
+    recut = from_jax_planar(jax_planar, jax_layout, pad=pad)
+    assert torch.equal(recut, to_planar_padded(small_image,
+                                               make_layout(h, w, pad=pad)))
+    scaled = from_jax_planar(jax_image.to_planar_padded_f32(
+        small_image, jax_layout), jax_layout, pad=pad)
+    assert torch.equal(scaled, to_planar_padded_f32(
+        small_image, make_layout(h, w, pad=pad)))
+
+
+def test_from_jax_planar_refuses_a_pad_beyond_the_jax_halo(small_image):
+    jax_layout = jax_image.make_layout(*small_image.shape[:2], halo=4)
+    arr = jax_image.to_planar_padded(small_image, jax_layout)
+    with pytest.raises(ValueError, match="cannot hold"):
+        from_jax_planar(arr, jax_layout, pad=5)
 
 
 def test_from_jax_planar_takes_a_batch_axis(small_image, rng):
