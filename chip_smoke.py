@@ -31,6 +31,13 @@ csrc`` with nvcc, then, with no fallback anywhere:
    models), driven once at full size with the counts zeroed and checked
    against the oracle, then each kernel equal to its plain version at
    3504x2336 and 37x53;
+   [3e] every body of the uint8 window kernels, random convolution masks
+   among them (rank 1, not rank 1, negative, clamping, a sum that carries
+   across 16-bit fields; each held to its route, ``ConvRank1`` or
+   ``ConvDense``), equal to its plain version on the whole buffer,
+   tolerance 0, at ``EDGE_IMAGES`` (rows that end at or past a word or
+   tile edge, heights not a multiple of the strip) and ``EDGE_BUFFERS``
+   (raw planar buffers);
 4. drives the port's CLI once at full size (``--rounds 50 --verify
    --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
    requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
@@ -48,10 +55,12 @@ csrc`` with nvcc, then, with no fallback anywhere:
    computes the same function, that call, with CUDA events, in the order
    kernel, plain, library, library, plain, kernel, behind a sleep kernel
    that keeps the card busy while the host queues the launches, so each
-   event pair times device work and not the host's launch overhead; then
-   the serving table of the fused pipeline at B = 1, 2, 4, 8: device µs
-   per image, end-to-end ``process_batch`` ms per image, and its two host
-   steps (layout bake, crop) timed alone;
+   event pair times device work and not the host's launch overhead; the
+   general ``ConvDense<3,3>`` and ``<5,5>``, which the matrix's rank-1
+   masks no longer reach, on ``DENSE_MASKS``; then the serving table of
+   the fused pipeline at B = 1, 2, 4, 8: device µs per image, end-to-end
+   ``process_batch`` ms per image, and its two host steps (layout bake,
+   crop) timed alone;
    [6f] the same timings for the float32 kernels, with TF32 off for the
    ``F.conv2d`` yardsticks; every yardstick's output is held to the plain
    version within 1e-6 (on the interior, for a windowed ``F.conv2d``);
@@ -59,7 +68,7 @@ csrc`` with nvcc, then, with no fallback anywhere:
    the summed device times of the port's unfused kernels for the same ops
    (from phases 6 and 6f) as its yardstick (no single PyTorch call
    computes a chain), and for the morphology kernels;
-7. prints ``{"kernels": [...]}`` (39 entries, each with its ``dtype``),
+7. prints ``{"kernels": [...]}`` (41 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -137,13 +146,15 @@ KERNELS = {
     "Erosion-1x3+3x1-Square": ("window_u8<MinSep>", "window.cu",
                                "ops/pallas/window.py:363",
                                "make_erosion_separated_fused"),
-    "Convolution-3x3": ("window_u8<ConvDense<3,3>>", "window.cu",
-                        "ops/pallas/window.py:491", "make_convolution"),
+    "Convolution-3x3": ("window_u8<ConvRank1<3,3>>", "window.cu",
+                        "ops/pallas/window.py:491",
+                        "make_convolution (body_rank1 :541)"),
     "Convolution-1x3+3x1": ("window_u8<ConvSep<3>>", "window.cu",
                             "ops/pallas/window.py:606",
                             "make_convolution_separated_fused"),
-    "Convolution-5x5": ("window_u8<ConvDense<5,5>>", "window.cu",
-                        "ops/pallas/window.py:491", "make_convolution"),
+    "Convolution-5x5": ("window_u8<ConvRank1<5,5>>", "window.cu",
+                        "ops/pallas/window.py:491",
+                        "make_convolution (body_rank1 :541)"),
     "Convolution-1x5+5x1": ("window_u8<ConvSep<5>>", "window.cu",
                             "ops/pallas/window.py:606",
                             "make_convolution_separated_fused"),
@@ -153,6 +164,26 @@ KERNELS = {
     "Fused-Pipeline": ("pipeline_u8", "pipeline.cu", "models/pipeline.py:30",
                        "make_fused_pipeline_pallas"),
 }
+
+# The general dense convolution, which the matrix's Gaussian masks (rank 1)
+# no longer reach: timed on masks that do not factor, with negative weights
+# and clamping, as a user's sharpening filter would be. Column whose work
+# (WORK) it does -> (mask, shift): a 3x3 sharpen, and the 5x5 unsharp mask
+# 2 * identity - Gaussian (-1/256 [1 4 6 4 1]^T [1 4 6 4 1], centre 476).
+UNSHARP_5X5 = -spec.BLUR_5X5_INT
+UNSHARP_5X5[2, 2] = 476
+DENSE_MASKS = {
+    "Convolution-3x3": (np.array([[-1, -1, -1], [-1, 12, -1],
+                                  [-1, -1, -1]], np.int32), 2),
+    "Convolution-5x5": (UNSHARP_5X5, 8),
+}
+DENSE_TPU = ("ops/pallas/window.py:491",
+             "make_convolution (body_packed :562, body_i32 :581)")
+# Phase 3e: images whose rows end at or past a word or tile edge and whose
+# heights are not a multiple of the strip (pitches 16, 16, 32, 128, 3520),
+# and raw planar buffers, where only the whole-buffer comparison applies.
+EDGE_IMAGES = ((3, 3), (3, 12), (5, 28), (64, 124), (2341, 3501))
+EDGE_BUFFERS = ((3, 3, 16), (1, 70, 4112))
 
 # The same for the float32 model, all in f32.cu.
 _F32 = "ops/pallas/f32.py:"
@@ -596,6 +627,97 @@ def compare_morphology(models: dict, sizes) -> list[float]:
     return errs
 
 
+def random_masks(rng) -> list:
+    """(mask, shift) for the convolutions at each size: rank 1 (ConvRank1),
+    nonnegative but not rank 1, with negative weights, and one whose sum
+    makes the clamp fire (ConvDense), each held to its route."""
+    masks = []
+    for n in (3, 5):
+        u, v = rng.integers(1, 4, n), rng.integers(0, 4, n)
+        v[n // 2] += 1
+        carry = np.zeros(n, np.int32)  # sum 257: the rounding add carries
+        carry[n // 2] = 1
+        masks += [(np.outer(u, v).astype(np.int32), int(rng.integers(1, 9)),
+                   "ConvRank1"),
+                  (np.outer(u, v).astype(np.int32), 1, "ConvRank1"),
+                  (np.outer(carry, [50] * (n // 2) + [257 - 100 * (n // 2)]
+                            + [50] * (n // 2)).astype(np.int32)
+                   if n == 5 else np.outer(carry, [100, 57, 100]).astype(
+                       np.int32), 8, "ConvRank1"),
+                  (rng.integers(0, 9, (n, n)).astype(np.int32), 5,
+                   "ConvDense"),
+                  (rng.integers(-9, 10, (n, n)).astype(np.int32), 3,
+                   "ConvDense"),
+                  (rng.integers(0, 30, (n, n)).astype(np.int32), 2,
+                   "ConvDense")]
+    return masks
+
+
+def edge_bodies(rng) -> list:
+    """(label, kernel name, op on a planar tensor, its plain version) for
+    every body of the uint8 window kernels."""
+    out = []
+    for col in ("Erosion-3x3-Cross", "Erosion-3x3-Square",
+                "Erosion-1x3+3x1-Square", "Convolution-3x3",
+                "Convolution-1x3+3x1", "Convolution-5x5",
+                "Convolution-1x5+5x1", "Gaussian-Blur-3x3"):
+        out.append((col, KERNELS[col][0], OPS[col], PLAIN[col]))
+    for label, _, make, mask, name, *_ in MORPHOLOGY:
+        if name.startswith("window_u8"):
+            taps = window.mask_to_taps(mask)
+            reduce = "max" if label.startswith("Dilation") else "min"
+            _, entry, extra = window.morphology_launch(taps, reduce)
+            out.append((label, name, lambda p, n=name, e=entry, x=extra:
+                        window._launch_window(n, e, p, *x),
+                        lambda p, t=taps, r=reduce: window.morphology_plain(
+                            p, t, torch.minimum if r == "min"
+                            else torch.maximum)))
+    for mask, shift, body in random_masks(rng) + [
+            (m, s, "ConvDense") for m, s in DENSE_MASKS.values()]:
+        name = window.convolution_launch(mask, shift)[0]
+        check(body in name, f"mask {mask.tolist()} routed to {name}")
+        out.append((f"{mask.tolist()} >> {shift}", name,
+                    lambda p, m=mask, s=shift: window.convolution(p, m, s),
+                    lambda p, m=mask, s=shift: window.conv_dense_plain(
+                        p, m, s)))
+    for n in (3, 5):
+        row = rng.integers(-4, 9, (1, n)).astype(np.int32)
+        col = rng.integers(-4, 9, (n, 1)).astype(np.int32)
+        out.append((f"{row.ravel().tolist()} x {col.ravel().tolist()}",
+                    f"window_u8<ConvSep<{n}>>",
+                    lambda p, r=row, c=col: window.convolution_separated(
+                        p, r, c, 3),
+                    lambda p, r=row, c=col: window.conv_sep_plain(
+                        p, r, c, 3)))
+    return out
+
+
+def compare_window_edges(rng) -> dict:
+    """Every uint8 window body against its plain version on the whole
+    buffer, tolerance 0, at EDGE_IMAGES and EDGE_BUFFERS; returns the
+    largest |kernel - plain| per kernel name."""
+    inputs = [(f"{h}x{w}", to_planar_padded(
+        rng.integers(0, 256, (h, w, 3), np.uint8), make_layout(h, w)))
+        for h, w in EDGE_IMAGES]
+    inputs += [(f"raw {shape}", torch.from_numpy(
+        rng.integers(0, 256, shape, np.uint8))) for shape in EDGE_BUFFERS]
+    bodies = edge_bodies(rng)
+    errs = {}
+    for label, planar in inputs:
+        planar = planar.cuda()
+        for what, name, fn, plain in bodies:
+            got, want = fn(planar), plain(planar)
+            torch.cuda.synchronize()
+            err = max_delta(got, want)
+            errs[name] = max(errs.get(name, 0.0), err)
+            check(torch.equal(got, want), f"{name} ({what}) on {label}: "
+                  f"kernel differs from its plain version (max |delta| "
+                  f"{err})")
+        print(f"  {label} {tuple(planar.shape)}: {len(bodies)} window_u8 "
+              f"cases equal to their plain versions")
+    return errs
+
+
 def drive_main_path(model: Model, img, label, fuse) -> dict:
     """Run the port's CLI once at full size with the pipeline row and the
     chain ``fuse`` in ``model``'s data model; return that run's launch
@@ -789,6 +911,32 @@ def time_kernels(model: Model, img, errs: dict, counts: dict) -> list[dict]:
     return entries
 
 
+def time_dense(img, errs: dict, counts: dict) -> list[dict]:
+    """Kernel and plain device time of the general ConvDense on
+    DENSE_MASKS at full size; it runs on the main path no more."""
+    planar = to_planar_padded(img, make_layout(*img.shape[:2])).cuda()
+    entries = []
+    for col, (mask, shift) in DENSE_MASKS.items():
+        name = window.convolution_launch(mask, shift)[0]
+        ms, plain_ms = timed([
+            lambda p, m=mask, s=shift: window.convolution(p, m, s),
+            lambda p, m=mask, s=shift: window.conv_dense_plain(p, m, s)],
+            planar)
+        bound_ms, bound_by = bound(col, planar)
+        op = f"{col} (mask not rank 1)"
+        print(f"    {op:24s} {name:28s} kernel {ms:9.4f} ms | plain "
+              f"{plain_ms:9.4f} ms | library none | bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        entries.append({
+            "name": name, "dtype": "uint8", "op": op, "route": "cuda",
+            "source": CSRC + "window.cu",
+            "replaces": "dip_benchmark_tpu/" + DENSE_TPU[0],
+            "tpu_kernel": DENSE_TPU[1], "launches": counts.get(name, 0),
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return entries
+
+
 def time_chains(model: Model, img, unfused_ms: dict, errs: dict,
                 counts: dict) -> list[dict]:
     """Chain kernel and plain device time of every chain on its R-halo
@@ -907,6 +1055,9 @@ def main() -> int:
     models = {"uint8": u8, "float32": f32}
     morph_counts = drive_morphology(models, img)
     morph_errs = compare_morphology(models, sizes[:2])
+    print("[3e] uint8 window bodies at word, tile and strip edges, random "
+          "masks: kernel against plain version, tolerance 0")
+    edge_errs = compare_window_edges(rng)
 
     counts = {}
     fuse = {"uint8": CHAINS["C1"], "float32": CHAINS["C2"]}
@@ -929,6 +1080,7 @@ def main() -> int:
 
     timing_header("6", u8)
     entries = time_kernels(u8, img, errs["uint8"], counts["uint8"])
+    entries += time_dense(img, edge_errs, counts["uint8"])
     print(f"    serving: fused pipeline on {label} stacks | {smi}")
     serving = serving_table(variants)
     for row in serving:
@@ -950,7 +1102,7 @@ def main() -> int:
                                counts[model.dtype])
     entries += time_morphology(models, img, morph_errs, morph_counts)
 
-    want = 26 + 2 * len(CHAINS) + len(MORPHOLOGY)
+    want = 26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
     check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
     summary = {"kernels": entries}
     with open(os.path.join(OUT, "summary.json"), "w") as f:

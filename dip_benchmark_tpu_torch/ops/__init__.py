@@ -36,13 +36,13 @@ TABLE = {
                            (spec.SQUARE_MASK_3X3,)),
     "Erosion-1x3+3x1-Square": (window.erosion_separated,
                                window.erosion_sep_plain, ()),
-    "Convolution-3x3": (window.convolution, window.conv_dense_plain,
+    "Convolution-3x3": (window.convolution, window.convolution_plain,
                         (spec.BLUR_3X3_INT, spec.BLUR_3X3_SHIFT)),
     "Convolution-1x3+3x1": (window.convolution_separated,
                             window.conv_sep_plain,
                             (spec.BLUR_1X3_INT, spec.BLUR_3X1_INT,
                              spec.BLUR_SEP3_SHIFT)),
-    "Convolution-5x5": (window.convolution, window.conv_dense_plain,
+    "Convolution-5x5": (window.convolution, window.convolution_plain,
                         (spec.BLUR_5X5_INT, spec.BLUR_5X5_SHIFT)),
     "Convolution-1x5+5x1": (window.convolution_separated,
                             window.conv_sep_plain,

@@ -46,6 +46,7 @@ SIGNATURES = {
     "dip_erosion_sep_u8": (_P, _P, _I, _I, _I, _P),
     "dip_blur3x3_u8": (_P, _P, _I, _I, _I, _P),
     "dip_conv_dense_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
+    "dip_conv_rank1_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P),
     "dip_conv_sep_u8": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
     "dip_pipeline_u8": (_P, _P, _I, _I, _I, _P),
     "dip_dilation_rect_u8": (_P, _P, _I, _I, _I, _P),

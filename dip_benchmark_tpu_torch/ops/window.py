@@ -6,10 +6,18 @@ in the outer ``hy`` rows and ``hx`` columns. The mirror halo is baked into
 the layout, so the taps need no boundary logic, and the crop of the output
 is the oracle's answer.
 
-Each op has a wrapper that launches ``window_u8<Body>`` (``kernels/csrc/
-window.cu``) for a tensor on the card, and a plain PyTorch version
-(``*_plain``) of the same whole-buffer function that the wrapper takes
-only for a tensor on the CPU.
+Each op has a wrapper that launches a body of ``window_u8_strip``
+(``kernels/csrc/window.cu``; launches are counted as ``window_u8<Body>``)
+for a tensor on the card, and a plain PyTorch version (``*_plain``) of the
+same whole-buffer function that the wrapper takes only for a tensor on the
+CPU.
+
+``convolution`` routes a mask as the JAX package's ``make_convolution``
+routes it: a mask that ``factor_rank1_int`` splits into integer factors
+``outer(u, v)`` and that passes the packed-16 proof (``_packable``) runs
+the rank-1 body ``ConvRank1`` (``body_rank1``: a row pass with ``v``, a
+column pass with ``u``, one rounding); every other mask the general
+``ConvDense``. Both compute the dense correlation bit for bit.
 
 Beside the op matrix, the JAX package's library surface for morphology:
 ``make_erosion(layout, taps)`` and ``make_dilation(layout, taps)`` build
@@ -26,6 +34,7 @@ The ring is the element's largest ``|dy|`` rows and ``|dx|`` columns.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -76,6 +85,13 @@ def zero_ring(out: torch.Tensor, ry: int, rx: int | None = None
     return out
 
 
+def _no_interior(planar: torch.Tensor, hy: int, hx: int) -> bool:
+    """True for a buffer too small for one output outside the ring of
+    ``hy`` rows and ``hx`` columns: the op's output is then all 0."""
+    _, hp, pitch = planar.shape
+    return hp <= 2 * hy or pitch <= 2 * hx
+
+
 def _round(acc: torch.Tensor, shift: int) -> torch.Tensor:
     half = (1 << shift) >> 1
     return torch.clamp((acc + half) >> shift, 0, 255)
@@ -88,6 +104,8 @@ def erosion_plain(planar: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
 
 def erosion_sep_plain(planar: torch.Tensor) -> torch.Tensor:
     """3x1 column min, then 1x3 min over the column mins."""
+    if _no_interior(planar, 1, 1):
+        return torch.zeros_like(planar)
     _, hp, pitch = planar.shape
     col = torch.minimum(torch.minimum(planar[:, 0:hp - 2], planar[:, 1:hp - 1]),
                         planar[:, 2:hp])
@@ -102,6 +120,8 @@ def conv_dense_plain(planar: torch.Tensor, int_mask: np.ndarray,
     """Dense correlation, int32 sum, one round-half-up, clamp."""
     kh, kw = int_mask.shape
     hy, hx = kh // 2, kw // 2
+    if _no_interior(planar, hy, hx):
+        return torch.zeros_like(planar)
     wide = planar.to(torch.int32)
     acc = 0
     for ky in range(kh):
@@ -111,12 +131,34 @@ def conv_dense_plain(planar: torch.Tensor, int_mask: np.ndarray,
     return _framed(_round(acc, shift), planar, hy, hx)
 
 
+def conv_rank1_plain(planar: torch.Tensor, u: np.ndarray, v: np.ndarray,
+                     shift: int) -> torch.Tensor:
+    """The correlation with ``outer(u, v)``: an unrounded row pass with
+    ``v``, a column pass with ``u``, one round-half-up, clamp. Integer sums
+    are exact, so this equals ``conv_dense_plain`` on the outer product."""
+    kh, kw = len(u), len(v)
+    hy, hx = kh // 2, kw // 2
+    if _no_interior(planar, hy, hx):
+        return torch.zeros_like(planar)
+    _, hp, pitch = planar.shape
+    wide = planar.to(torch.int32)
+    rows = 0
+    for kx in range(kw):
+        rows = rows + int(v[kx]) * wide[..., kx:pitch - 2 * hx + kx]
+    acc = 0
+    for ky in range(kh):
+        acc = acc + int(u[ky]) * rows[:, ky:hp - 2 * hy + ky]
+    return _framed(_round(acc, shift), planar, hy, hx)
+
+
 def conv_sep_plain(planar: torch.Tensor, row_mask: np.ndarray,
                    col_mask: np.ndarray, shift: int) -> torch.Tensor:
     """1xN pass rounded and clamped to u8, then Nx1 pass, rounded again."""
     wr, wc = np.ravel(row_mask), np.ravel(col_mask)
     n = len(wr)
     h = n // 2
+    if _no_interior(planar, h, h):
+        return torch.zeros_like(planar)
     _, hp, pitch = planar.shape
     wide = planar.to(torch.int32)
     rows = 0
@@ -131,6 +173,8 @@ def conv_sep_plain(planar: torch.Tensor, row_mask: np.ndarray,
 
 def blur3x3_plain(planar: torch.Tensor) -> torch.Tensor:
     """Op #14: 1-2-1 x 1-2-1 with constant weights, (o + 8) >> 4."""
+    if _no_interior(planar, 1, 1):
+        return torch.zeros_like(planar)
     _, hp, pitch = planar.shape
     wide = planar.to(torch.int32)
     col = wide[:, 0:hp - 2] + 2 * wide[:, 1:hp - 1] + wide[:, 2:hp]
@@ -174,19 +218,111 @@ def erosion_separated(planar: torch.Tensor) -> torch.Tensor:
     return _launch_window("window_u8<MinSep>", "dip_erosion_sep_u8", planar)
 
 
-def convolution(planar: torch.Tensor, int_mask: np.ndarray,
-                shift: int) -> torch.Tensor:
-    """Dense correlation with a runtime integer mask, 3x3 or 5x5."""
-    kernels.check_planar(planar)
+def _packable(int_mask: np.ndarray) -> bool:
+    """The packed-16 proof of the JAX package (``window.py:_packable``):
+    nonnegative weights whose sums over u8 data stay below 2^16."""
+    return bool((int_mask >= 0).all()) and 255 * int(int_mask.sum()) < (
+        1 << 16)
+
+
+def factor_rank1_int(int_mask: np.ndarray):
+    """(u, v) integer factors with mask == outer(u, v) exactly, or None.
+
+    The port's copy of the JAX package's ``factor_rank1_int``: a rank-1
+    integer mask runs as an unrounded row pass followed by a column pass
+    with one final rounding, bit-identical to the dense form at kh + kw
+    multiply-adds instead of kh * kw. Both Gaussian masks factor.
+    """
+    m = int_mask.astype(np.int64)
+    if (m < 0).any() or m.sum() == 0:
+        return None
+    r = next((row for row in m if row.any()), None)
+    if r is None:
+        return None
+    g = np.gcd.reduce(r[r != 0]) if (r != 0).any() else 1
+    v = r // g
+    u = []
+    for row in m:
+        nz = v != 0
+        if not nz.any():
+            return None
+        q, rem = np.divmod(row[nz], v[nz])
+        if rem.any() or not (q == q[0]).all() or not (row[~nz] == 0).all():
+            return None
+        u.append(int(q[0]))
+    u = np.array(u, dtype=np.int64)
+    if not (np.outer(u, v) == m).all():
+        return None
+    return u.astype(np.int32), v.astype(np.int32)
+
+
+def _mask_key(int_mask: np.ndarray) -> tuple:
+    m = np.asarray(int_mask, np.int64)
+    return m.shape, m.tobytes()
+
+
+def _mask_of(shape: tuple, data: bytes) -> np.ndarray:
+    return np.frombuffer(data, np.int64).reshape(shape)
+
+
+@functools.lru_cache(maxsize=256)
+def _rank1_factors(shape: tuple, data: bytes):
+    int_mask = _mask_of(shape, data)
+    return factor_rank1_int(int_mask) if _packable(int_mask) else None
+
+
+def rank1_factors(int_mask: np.ndarray):
+    """The (u, v) that ``convolution`` runs ``ConvRank1`` with, or None for
+    the general ``ConvDense``: where ``make_convolution`` takes
+    ``body_rank1`` (a packable mask that factors). Cached by mask: the
+    factoring costs more host time than the kernel does device time."""
+    return _rank1_factors(*_mask_key(int_mask))
+
+
+def _check_conv_mask(int_mask: np.ndarray) -> None:
     kh, kw = int_mask.shape
     if kh != kw or kh not in CONV_DENSE_SIZES:
         raise ValueError(f"no dense convolution kernel for a {kh}x{kw} "
                          f"mask (square, sizes {CONV_DENSE_SIZES})")
+
+
+def convolution_launch(int_mask: np.ndarray, shift: int) -> tuple:
+    """(kernel name, C entry point, its arguments after the geometry) of
+    ``convolution`` for this mask, built once per mask and shift."""
+    _check_conv_mask(int_mask)
+    return _convolution_launch(*_mask_key(int_mask), int(shift))
+
+
+@functools.lru_cache(maxsize=256)
+def _convolution_launch(shape: tuple, data: bytes, shift: int) -> tuple:
+    int_mask = _mask_of(shape, data)
+    kh, kw = shape
+    uv = _rank1_factors(shape, data)
+    if uv is not None:
+        return (f"window_u8<ConvRank1<{kh},{kw}>>", "dip_conv_rank1_u8",
+                (kh, kw, _int_array(uv[0]), _int_array(uv[1]), shift))
+    return (f"window_u8<ConvDense<{kh},{kw}>>", "dip_conv_dense_u8",
+            (kh, kw, _int_array(int_mask), shift))
+
+
+def convolution_plain(planar: torch.Tensor, int_mask: np.ndarray,
+                      shift: int) -> torch.Tensor:
+    """The plain version of the body ``convolution`` routes the mask to."""
+    uv = rank1_factors(int_mask)
+    if uv is not None:
+        return conv_rank1_plain(planar, *uv, shift)
+    return conv_dense_plain(planar, int_mask, shift)
+
+
+def convolution(planar: torch.Tensor, int_mask: np.ndarray,
+                shift: int) -> torch.Tensor:
+    """Dense correlation with a runtime integer mask, 3x3 or 5x5."""
+    kernels.check_planar(planar)
+    _check_conv_mask(int_mask)
     if kernels.on_cpu(planar):
-        return conv_dense_plain(planar, int_mask, shift)
-    return _launch_window(f"window_u8<ConvDense<{kh},{kw}>>",
-                          "dip_conv_dense_u8", planar, kh, kw,
-                          _int_array(int_mask), shift)
+        return convolution_plain(planar, int_mask, shift)
+    name, entry, extra = convolution_launch(int_mask, shift)
+    return _launch_window(name, entry, planar, *extra)
 
 
 def convolution_separated(planar: torch.Tensor, row_mask: np.ndarray,
@@ -237,6 +373,8 @@ def morphology_plain(planar: torch.Tensor, taps, reduce) -> torch.Tensor:
     0 in the ring of the largest ``|dy|`` rows and ``|dx|`` columns."""
     hy = max(abs(dy) for dy, _ in taps)
     hx = max(abs(dx) for _, dx in taps)
+    if _no_interior(planar, hy, hx):
+        return torch.zeros_like(planar)
     core = None
     for dy, dx in sorted(taps):
         t = _tap(planar, hy, hx, dy, dx)
@@ -263,6 +401,28 @@ MORPHOLOGY_KERNELS = {
 }
 
 
+def morphology_launch(taps, reduce: str, dtype: str = "uint8") -> tuple:
+    """(kernel name, C entry point, its arguments after the geometry) of
+    the min or max over ``taps``, routed by the element's structure."""
+    hy = max(abs(dy) for dy, _ in taps)
+    hx = max(abs(dx) for _, dx in taps)
+    body = _tap_structure(taps)
+    extent = ({dy for dy, _ in taps} == {-1, 0, 1}
+              and {dx for _, dx in taps} == {-1, 0, 1})
+    if body == "generic" or not extent:
+        body = "taps"
+    if body == "taps" and max(hy, hx) > MAX_TAP_RADIUS:
+        raise ValueError(f"structuring element radius {max(hy, hx)} "
+                         f"exceeds the kernels' {MAX_TAP_RADIUS}")
+    name, entry = MORPHOLOGY_KERNELS[(dtype, reduce, body)]
+    rows = [0] * (2 * MAX_TAP_RADIUS + 1)
+    for dy, dx in taps:
+        rows[dy + MAX_TAP_RADIUS] |= 1 << (dx + MAX_TAP_RADIUS)
+    extra = ((hy, hx, (ctypes.c_uint * len(rows))(*rows))
+             if body == "taps" else ())
+    return name, entry, extra
+
+
 def make_morphology(layout, taps, reduce: str, dtype: str = "uint8"):
     """The min (``reduce="min"``) or max over structuring element ``taps``
     on ``layout``: a function of the ``(C, Hp, pitch)`` tensor of
@@ -277,21 +437,8 @@ def make_morphology(layout, taps, reduce: str, dtype: str = "uint8"):
             f"structuring element radius (ry={hy}, rx={hx}) exceeds the "
             f"layout halo (pad={layout.pad}); build the layout with "
             f"pad={max(hy, hx)}")
-    body = _tap_structure(taps)
-    extent = ({dy for dy, _ in taps} == {-1, 0, 1}
-              and {dx for _, dx in taps} == {-1, 0, 1})
-    if body == "generic" or not extent:
-        body = "taps"
-    if body == "taps" and max(hy, hx) > MAX_TAP_RADIUS:
-        raise ValueError(f"structuring element radius {max(hy, hx)} "
-                         f"exceeds the kernels' {MAX_TAP_RADIUS}")
-    name, entry = MORPHOLOGY_KERNELS[(dtype, reduce, body)]
+    name, entry, extra = morphology_launch(taps, reduce, dtype)
     torch_dtype = torch.float32 if dtype == "float32" else torch.uint8
-    rows = [0] * (2 * MAX_TAP_RADIUS + 1)
-    for dy, dx in taps:
-        rows[dy + MAX_TAP_RADIUS] |= 1 << (dx + MAX_TAP_RADIUS)
-    extra = ((hy, hx, (ctypes.c_uint * len(rows))(*rows))
-             if body == "taps" else ())
     plain_reduce = torch.minimum if reduce == "min" else torch.maximum
 
     def op(planar: torch.Tensor) -> torch.Tensor:
