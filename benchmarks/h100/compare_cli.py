@@ -2,11 +2,11 @@
 """The CLI's per-row times of two checkouts of the port, in turns, on one GPU.
 
     python3 benchmarks/h100/compare_cli.py <checkout A> <checkout B> \\
-        [--rounds N] [--turns T]
+        [--rounds N] [--turns T] [--dtype uint8|float32] [--fuse COL,...]
 
 Runs ``python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N
---pipeline`` (the uint8 model) from each checkout on the same 3504x2336
-benchmark image (``utils.testimage.resolve_image``, saved once as PNG), in
+--pipeline --dtype D [--fuse COL,...]`` from each checkout on the same
+3504x2336 benchmark image (``utils.testimage.resolve_image``, saved once as PNG), in
 the order A, B, B, A, repeated T times, so that a drift of the card or the
 host hits both alike. Each run builds its checkout's kernels first (untimed: the
 session loads the library before the table). Prints, for every row of the
@@ -36,11 +36,11 @@ from dip_benchmark_tpu_torch.utils.testimage import resolve_image  # noqa: E402
 ROW = re.compile(r"^\| (.+?)\s+\|\s+[\d.]+s \(once\) \|\s+([\d.]+)s \(")
 
 
-def run_cli(checkout: str, image: str, outdir: str,
-            rounds: int) -> dict[str, float]:
+def run_cli(checkout: str, image: str, outdir: str, rounds: int,
+            extra: list[str]) -> dict[str, float]:
     """One CLI run from ``checkout``: row description -> µs per round."""
     cmd = [sys.executable, "-m", "dip_benchmark_tpu_torch.cli", image,
-           outdir, "--rounds", str(rounds), "--pipeline"]
+           outdir, "--rounds", str(rounds), "--pipeline", *extra]
     env = {**os.environ, "PYTHONPATH": os.path.abspath(checkout)}
     proc = subprocess.run(cmd, cwd=checkout, env=env, capture_output=True,
                           text=True, timeout=900)
@@ -61,7 +61,12 @@ def main(argv=None) -> int:
     ap.add_argument("b")
     ap.add_argument("--rounds", type=int, default=200)
     ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--dtype", default="uint8", choices=("uint8", "float32"))
+    ap.add_argument("--fuse", default=None,
+                    help="a chain row, as the CLI's --fuse takes it")
     args = ap.parse_args(argv)
+    extra = ["--dtype", args.dtype] + (["--fuse", args.fuse] if args.fuse
+                                       else [])
     if not torch.cuda.is_available():
         print("compare_cli: no CUDA device", file=sys.stderr)
         return 1
@@ -78,8 +83,8 @@ def main(argv=None) -> int:
             for which in ("a", "b", "b", "a"):
                 readings[which].append(run_cli(
                     getattr(args, which), image, os.path.join(tmp, "out"),
-                    args.rounds))
-    print(f"{label} uint8 | {smi} | --rounds {args.rounds}, "
+                    args.rounds, extra))
+    print(f"{label} {' '.join(extra)} | {smi} | --rounds {args.rounds}, "
           f"{args.turns} turns of A B B A | µs per round")
     medians = {}
     for row in readings["a"][0]:
@@ -91,7 +96,8 @@ def main(argv=None) -> int:
               f"{medians[row]['a']:8.1f} B {medians[row]['b']:8.1f}")
     print(smi)
     print(json.dumps({"image": label, "nvidia_smi": smi,
-                      "rounds": args.rounds, "a": args.a, "b": args.b,
+                      "rounds": args.rounds, "cli_flags": extra,
+                      "a": args.a, "b": args.b,
                       "readings": readings, "medians": medians}))
     return 0
 

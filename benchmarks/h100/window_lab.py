@@ -96,29 +96,35 @@ def bodies():
     return out
 
 
-def source() -> str:
-    with open(os.path.join(build.CSRC, "window.cu")) as f:
+def source(name: str = "window.cu") -> str:
+    with open(os.path.join(build.CSRC, name)) as f:
         return f.read()
 
 
-def tuning(text: str) -> dict:
-    """The tuning constants' values in window.cu's source ``text``."""
-    return {k: int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
-            for k in TUNING}
+def tuning(text: str, knobs=TUNING) -> dict:
+    """The tuning constants' values in the source ``text``."""
+    return {k: int(re.search(rf"constexpr int {k} = (-?\d+);", text)[1])
+            for k in knobs}
 
 
-def build_variants(names) -> dict:
-    """variant -> (library path, ptxas output); all compiled at once."""
-    os.makedirs(OUT, exist_ok=True)
+def build_variants(names, variants=None, src_name: str = "window.cu",
+                   out: str = OUT, append: str = "") -> dict:
+    """variant -> (library path, ptxas output): ``src_name`` from csrc/,
+    with the code ``append`` after it, with each variant's constants
+    (``variants``, default ``VARIANTS``) substituted, each into a library
+    of its own under ``out``; all compiled at once."""
+    variants = VARIANTS if variants is None else variants
+    os.makedirs(out, exist_ok=True)
     nvcc = build.nvcc_path()
-    text = source()
+    text = source(src_name) + append
+    stem = src_name.rsplit(".", 1)[0]
     procs = {}
     for name in names:
-        src = os.path.join(OUT, f"window_{name}.cu")
-        lib = os.path.join(OUT, f"window_{name}.so")
+        src = os.path.join(out, f"{stem}_{name}.cu")
+        lib = os.path.join(out, f"{stem}_{name}.so")
         variant = text
-        for k, v in VARIANTS[name].items():
-            variant = re.sub(rf"constexpr int {k} = \d+;",
+        for k, v in variants[name].items():
+            variant = re.sub(rf"constexpr int {k} = -?\d+;",
                              f"constexpr int {k} = {v};", variant)
         with open(src, "w") as f:
             f.write(variant)

@@ -38,6 +38,15 @@ csrc`` with nvcc, then, with no fallback anywhere:
    tolerance 0, at ``EDGE_IMAGES`` (rows that end at or past a word or
    tile edge, heights not a multiple of the strip) and ``EDGE_BUFFERS``
    (raw planar buffers);
+   [3g] ``chain_u8`` for C1-C4 and Grayscale alone, on one image and on a
+   stack of two, equal to its plain version on the whole buffer, tolerance
+   0, at the smallest image each chain takes, ``CHAIN_EDGE_IMAGES`` (rows
+   that end short of a tile or span several, 2341x3501) and
+   ``CHAIN_EDGE_BUFFERS``, and 12 stage lists no column name makes
+   (``random_chain_stages``: rank-1 masks that clamp, shifts above 8);
+   [3h] every body of ``window_f32_strip`` (the float32 convolutions and
+   blur), random float masks among them, the same way at ``EDGE_IMAGES``
+   and ``EDGE_BUFFERS``;
 4. drives the port's CLI once at full size (``--rounds 50 --verify
    --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
    requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
@@ -79,6 +88,7 @@ build log and a summary go to ``build/chip_smoke/`` in the checkout.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -87,6 +97,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -184,6 +195,12 @@ DENSE_TPU = ("ops/pallas/window.py:491",
 # and raw planar buffers, where only the whole-buffer comparison applies.
 EDGE_IMAGES = ((3, 3), (3, 12), (5, 28), (64, 124), (2341, 3501))
 EDGE_BUFFERS = ((3, 3, 16), (1, 70, 4112))
+# Phase 3g: besides the smallest image a chain takes (side max(2, R) + 1),
+# images whose rows end short of a chain_u8 tile or span several, heights
+# not a multiple of its rows; and raw buffers (three planes, so that a
+# Grayscale-first chain takes them too).
+CHAIN_EDGE_IMAGES = ((5, 28), (64, 124), (33, 481), (2341, 3501))
+CHAIN_EDGE_BUFFERS = ((3, 3, 16), (3, 70, 4112))
 
 # The same for the float32 model, all in f32.cu.
 _F32 = "ops/pallas/f32.py:"
@@ -718,6 +735,195 @@ def compare_window_edges(rng) -> dict:
     return errs
 
 
+def chain_edge_inputs(rng, cols) -> list:
+    """(label, uint8 planar on the CPU) for the chain ``cols``: the smallest
+    image it takes, each of CHAIN_EDGE_IMAGES that fits its halo, and
+    CHAIN_EDGE_BUFFERS."""
+    pad = max(2, *chain.check_chain(cols))
+    shapes = [(pad + 1, pad + 1)] + [hw for hw in CHAIN_EDGE_IMAGES
+                                     if min(hw) > pad]
+    inputs = [(f"{h}x{w}", to_planar_padded(
+        rng.integers(0, 256, (h, w, 3), np.uint8),
+        make_layout(h, w, pad=pad))) for h, w in shapes]
+    return inputs + [(f"raw {shape}", torch.from_numpy(
+        rng.integers(0, 256, shape, np.uint8))) for shape in
+        CHAIN_EDGE_BUFFERS]
+
+
+def raw_chain(shape, cols, batch: int = 0):
+    """The uint8 chain ``cols`` for any (C, Hp, pitch) buffer ``shape``,
+    through a stand-in for its layout (the chain reads only these three
+    fields), with the deepest halo."""
+    layout = types.SimpleNamespace(pad=chain.MAX_CHAIN_RADIUS,
+                                   channels=shape[0], shape=tuple(shape))
+    return chain.make_fused_chain(layout, cols, batch=batch)
+
+
+def random_chain_stages(rng, n: int) -> list:
+    """``n`` stage lists for chain_u8 that no column name makes: rank-1
+    masks with random nonnegative factors and shifts (sums that clamp,
+    shifts above 8), 1xN stages right before Nx1 ones, min and point stages,
+    radii summing to at most 8."""
+    shapes = ((3, 3), (5, 5), (1, 3), (3, 1), (1, 5), (5, 1))
+
+    def conv(kh, kw):
+        while True:
+            u, v = rng.integers(0, 5, kh), rng.integers(0, 5, kw)
+            u[kh // 2] += 1
+            v[kw // 2] += 1
+            mask, shift = np.outer(u, v).astype(np.int32), int(
+                rng.integers(0, 12))
+            if 255 * mask.sum() + ((1 << shift) >> 1) < 1 << 16:
+                return chain.Stage("conv", mask, shift)
+
+    out = []
+    while len(out) < n:
+        stages = []
+        while max(sum(st.ry for st in stages),
+                  sum(st.rx for st in stages)) <= 8 and len(stages) < 6:
+            k = int(rng.integers(0, 6))
+            if k == 0:
+                stages.append(chain.Stage(("copy", "invert", "threshold")[
+                    int(rng.integers(0, 3))]))
+            elif k == 1:
+                stages.append(chain.Stage("min", (
+                    spec.CROSS_MASK_3X3 if rng.integers(0, 2)
+                    else spec.SQUARE_MASK_3X3).astype(np.int32)))
+            else:
+                kh, kw = shapes[int(rng.integers(0, len(shapes)))]
+                stages.append(conv(kh, kw))
+                if kh == 1:
+                    stages.append(conv(kw, 1))
+        while max(sum(st.ry for st in stages),
+                  sum(st.rx for st in stages)) > 8:
+            stages.pop()
+        if any(st.kind != "copy" for st in stages):
+            out.append(stages)
+    return out
+
+
+def stages_u8(stages, planar: torch.Tensor) -> torch.Tensor:
+    """chain_u8 on a stage list itself, one launch over every plane of
+    ``planar`` (one image or a stack)."""
+    words = chain._encode(stages, False)
+    host = (ctypes.c_int * len(words))(*words.tolist())
+    dev = torch.from_numpy(words).to(planar.device)
+    out = torch.empty_like(planar)
+    hp, pitch = planar.shape[-2:]
+    kernels.launch("chain_u8", "dip_chain_u8", planar.device,
+                   planar.data_ptr(), out.data_ptr(),
+                   planar.numel() // (hp * pitch), hp, pitch, 0,
+                   dev.data_ptr(), host, len(words),
+                   *spec.GRAYSCALE_WEIGHTS_INT_RGB, spec.GRAYSCALE_SHIFT)
+    return out
+
+
+def stages_plain(stages, planar: torch.Tensor) -> torch.Tensor:
+    """The plain stages composed, then the chain's zero ring."""
+    p = planar.reshape(-1, *planar.shape[-2:])
+    for st in stages:
+        p = chain._stage_plain(st, p, False)
+    return window.zero_ring(p.clone(), sum(st.ry for st in stages),
+                            sum(st.rx for st in stages)).reshape(
+                                planar.shape)
+
+
+def compare_chain_edges(rng) -> dict:
+    """chain_u8 against fused_chain_plain on the whole buffer, tolerance 0,
+    for C1-C4 and Grayscale alone, on one image and on a stack of two, at
+    ``chain_edge_inputs``; the largest |kernel - plain| per chain."""
+    errs = {}
+    for name, cols in CHECKED_CHAINS.items():
+        for label, planar in chain_edge_inputs(rng, cols):
+            shape = tuple(planar.shape)
+            planar = planar.cuda()
+            stack = torch.stack([planar, planar.flip(-1).contiguous()])
+            for p, batch in ((planar, 0), (stack, 2)):
+                got = raw_chain(shape, cols, batch)(p)
+                want = chain.fused_chain_plain(p, cols)
+                torch.cuda.synchronize()
+                err = max_delta(got, want)
+                errs[name] = max(errs.get(name, 0.0), err)
+                check(torch.equal(got, want), f"chain_u8 {name} on {label} "
+                      f"(batch {batch}): kernel differs from its plain "
+                      f"version (max |delta| {err})")
+        print(f"  {name} {','.join(cols)}: equal to its plain version at "
+              f"every edge shape, one image and B=2")
+    inputs = [("33x481", to_planar_padded(
+        rng.integers(0, 256, (33, 481, 3), np.uint8),
+        make_layout(33, 481, pad=8)))] + [
+        (f"raw {shape}", torch.from_numpy(rng.integers(
+            0, 256, shape, np.uint8))) for shape in CHAIN_EDGE_BUFFERS]
+    stage_lists = random_chain_stages(rng, 12)
+    for label, planar in inputs:
+        planar = planar.cuda()
+        for stages in stage_lists:
+            got, want = stages_u8(stages, planar), stages_plain(stages,
+                                                                planar)
+            torch.cuda.synchronize()
+            err = max_delta(got, want)
+            errs["random"] = max(errs.get("random", 0.0), err)
+            check(torch.equal(got, want), f"chain_u8 on {label}, stages "
+                  f"{[(st.kind, st.mask.tolist(), st.shift) for st in stages]}"
+                  f": kernel differs from its plain version (max |delta| "
+                  f"{err})")
+    print(f"  {len(stage_lists)} random stage lists (rank-1 masks that "
+          f"clamp, shifts up to 11): equal to their plain versions")
+    return errs
+
+
+def f32_edge_bodies(rng) -> list:
+    """(label, kernel name, op on a float32 planar tensor, its plain
+    version) for every body of window_f32_strip: the matrix's masks and
+    random ones (ints of up to 10 bits over 2^10, so that most products
+    round), ``ConvSep`` with random row and column masks."""
+    out = [("Blur3x3", "window_f32<Blur3x3>", f32.gaussian_blur_3x3,
+            f32.blur3x3_plain)]
+    for n, mask, shift in ((3, spec.BLUR_3X3_INT, spec.BLUR_3X3_SHIFT),
+                           (5, spec.BLUR_5X5_INT, spec.BLUR_5X5_SHIFT)):
+        for m, s in ((mask, shift),
+                     (rng.integers(-1000, 1001, (n, n)).astype(np.int32),
+                      10)):
+            out.append((f"{m.tolist()} >> {s}",
+                        f"window_f32<ConvDense<{n},{n}>>",
+                        lambda p, m=m, s=s: f32.convolution(p, m, s),
+                        lambda p, m=m, s=s: f32.conv_dense_plain(p, m, s)))
+        row = rng.integers(-1000, 1001, (1, n)).astype(np.int32)
+        col = rng.integers(-1000, 1001, (n, 1)).astype(np.int32)
+        out.append((f"{row.ravel().tolist()} x {col.ravel().tolist()}",
+                    f"window_f32<ConvSep<{n}>>",
+                    lambda p, r=row, c=col: f32.convolution_separated(
+                        p, r, c, 10),
+                    lambda p, r=row, c=col: f32.conv_sep_plain(p, r, c, 10)))
+    return out
+
+
+def compare_f32_window_edges(rng) -> dict:
+    """Every window_f32_strip body against its plain version on the whole
+    buffer, tolerance 0, at EDGE_IMAGES and EDGE_BUFFERS (random floats in
+    [0, 1)); the largest |kernel - plain| per kernel name."""
+    inputs = [(f"{h}x{w}", to_planar_padded_f32(
+        rng.integers(0, 256, (h, w, 3), np.uint8), make_layout(h, w)))
+        for h, w in EDGE_IMAGES]
+    inputs += [(f"raw {shape}", torch.from_numpy(
+        rng.random(shape, dtype=np.float32))) for shape in EDGE_BUFFERS]
+    bodies = f32_edge_bodies(rng)
+    errs = {}
+    for label, planar in inputs:
+        planar = planar.cuda()
+        for what, name, fn, plain in bodies:
+            got, want = fn(planar), plain(planar)
+            torch.cuda.synchronize()
+            err = max_delta(got, want)
+            errs[name] = max(errs.get(name, 0.0), err)
+            check(torch.equal(got, want), f"{name} ({what}) on {label}: "
+                  f"kernel differs from its plain version (max |delta| "
+                  f"{err})")
+        print(f"  {label} {tuple(planar.shape)}: {len(bodies)} "
+              f"window_f32_strip cases equal to their plain versions")
+    return errs
+
+
 def drive_main_path(model: Model, img, label, fuse) -> dict:
     """Run the port's CLI once at full size with the pipeline row and the
     chain ``fuse`` in ``model``'s data model; return that run's launch
@@ -1058,6 +1264,20 @@ def main() -> int:
     print("[3e] uint8 window bodies at word, tile and strip edges, random "
           "masks: kernel against plain version, tolerance 0")
     edge_errs = compare_window_edges(rng)
+    print("[3g] chain_u8 at the smallest image of each chain, tile and "
+          "strip edges, one image and B=2: kernel against plain version, "
+          "tolerance 0")
+    chain_edge_errs = compare_chain_edges(rng)
+    print("[3h] window_f32_strip bodies at word and strip edges, random "
+          "masks: kernel against plain version, tolerance 0")
+    f32_edge_errs = compare_f32_window_edges(rng)
+    for name, err in chain_edge_errs.items():
+        if name in chain_errs["uint8"]:
+            chain_errs["uint8"][name] = max(chain_errs["uint8"][name], err)
+    for col, (name, *_) in KERNELS_F32.items():
+        if name in f32_edge_errs:
+            errs["float32"][col] = max(errs["float32"][col],
+                                       f32_edge_errs[name])
 
     counts = {}
     fuse = {"uint8": CHAINS["C1"], "float32": CHAINS["C2"]}

@@ -219,19 +219,38 @@ def fused_chain_plain(planar: torch.Tensor, cols,
 
 # -- the kernel's wrapper --------------------------------------------------
 
+def _rank1_payload(stage: Stage) -> np.ndarray:
+    """A uint8 conv stage's factors u (kh) then v (kw), from
+    ``ops/window.rank1_factors``; ValueError where csrc/chain.cu has no
+    body for the mask: it does not factor into nonnegative integers, or a
+    16-bit field of its sums, rounding add included, could reach 2^16."""
+    uv = window.rank1_factors(stage.mask)
+    half = (1 << stage.shift) >> 1
+    if (uv is None or stage.shift > 15
+            or 255 * int(stage.mask.sum()) + half >= 1 << 16):
+        raise ValueError(f"chain_u8 takes a conv mask only as nonnegative "
+                         f"rank-1 integer factors within the packed-16 "
+                         f"bound; this one has none:\n{stage.mask}")
+    return np.concatenate(uv)
+
+
 def _encode(stages: list[Stage], float32: bool) -> np.ndarray:
     """The stage list as csrc/chain.cu reads it: per stage the words kind,
-    kh, kw, shift, then kh * kw weights (taps for "min"; for "conv" the
-    integer weights, or in float32 the bits of int / 2**shift)."""
+    kh, kw, shift, then its payload: the one weight 0 of a point stage, the
+    kh * kw taps of a "min", and for a "conv" the rank-1 factors u (kh
+    words) then v (kw words) of its integer mask, or in float32 the bits
+    of its kh * kw weights int / 2**shift. Raises ValueError for a uint8
+    conv stage whose mask has no such factors."""
     words: list[int] = []
     for s in stages:
         kh, kw = s.mask.shape
         words += [KINDS[s.kind], kh, kw, s.shift]
-        weights = np.asarray(s.mask, np.int32)
-        if float32 and s.kind == "conv":
-            weights = spec.mask_float(s.mask, s.shift).astype(
-                np.float32).view(np.int32)
-        words += weights.ravel().tolist()
+        payload = np.asarray(s.mask, np.int32)
+        if s.kind == "conv":
+            payload = (spec.mask_float(s.mask, s.shift).astype(
+                np.float32).view(np.int32) if float32
+                else _rank1_payload(s))
+        words += payload.ravel().tolist()
     return np.asarray(words, np.int32)
 
 

@@ -71,6 +71,8 @@ def conv_dense_plain(planar: torch.Tensor, int_mask: np.ndarray,
     fmask = spec.mask_float(int_mask, shift)
     kh, kw = fmask.shape
     hy, hx = kh // 2, kw // 2
+    if window._no_interior(planar, hy, hx):
+        return torch.zeros_like(planar)
     acc = None
     for kx in range(kw):
         col = None
@@ -90,6 +92,8 @@ def conv_sep_plain(planar: torch.Tensor, row_mask: np.ndarray,
     wc = np.ravel(spec.mask_float(col_mask, shift))
     n = len(wr)
     h = n // 2
+    if window._no_interior(planar, h, h):
+        return torch.zeros_like(planar)
     _, hp, pitch = planar.shape
     rows = None
     for kx in range(n):
@@ -105,6 +109,8 @@ def conv_sep_plain(planar: torch.Tensor, row_mask: np.ndarray,
 def blur3x3_plain(planar: torch.Tensor) -> torch.Tensor:
     """0.25 / 0.5 / 0.25 vertically, then horizontally, each pass
     (q * a + h * b) + q * c."""
+    if window._no_interior(planar, 1, 1):
+        return torch.zeros_like(planar)
     _, hp, pitch = planar.shape
     q, h = 0.25, 0.5
     col = (planar[:, 0:hp - 2] * q + planar[:, 1:hp - 1] * h) \

@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
 SOURCES = ("point.cu", "window.cu", "pipeline.cu", "f32.cu", "chain.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "words.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdipkernels.so"

@@ -11,6 +11,7 @@
 //     MinRect, MinPlus         <- _make_erosion (body_rect, body_plus)
 //     Taps                     <- _make_erosion (body_generic)
 //     MinSep                   <- _make_erosion_sep
+//   window_f32_strip<Body>     <- window.py _windowed_call (dtype=f32)
 //     ConvDense<KH, KW>        <- _make_conv
 //     ConvSep<N>               <- _make_conv_sep
 //     Blur3x3                  <- _make_blur
@@ -33,15 +34,25 @@
 //
 // Design: point_f32 and grayscale_f32 move one float4 (16 bytes) a thread
 // over the whole buffer, halo included, since point ops commute with the
-// mirror. window_f32 is window_u8's skeleton (csrc/window.cu): one thread
-// per output element in the padded coordinates of the input, 0.0f in the
-// outer ring of HY rows and HX columns, so every element of the output is
-// written; masks travel by value in the body. pipeline_f32 keeps
+// mirror. window_f32, for the min bodies, is the first skeleton of
+// window_u8: one thread per output element in the padded coordinates of
+// the input and one load a tap, 0.0f in the outer ring of HY rows and HX
+// columns, so every element of the output is written; masks travel by
+// value in the body. window_f32_strip, for the convolutions and the blur,
+// replaced it there (it took 113-160 us at 3504x2336, one load a tap and,
+// for ConvSep, the N horizontal sums of every row again for every output):
+// a thread owns one float4 of a row and walks a strip of rows, loading each
+// input row once, 16 bytes a lane, a few rows ahead, the HX floats on each
+// side from the neighbouring lanes by shuffle; ConvSep keeps a ring of
+// per-row partials (2N operations an output instead of 2N^2), ConvDense and
+// Blur3x3, vertical first, a ring of raw rows. The bodies keep the JAX
+// order of every sum, so no rank-1 shortcut applies to ConvDense: that
+// would change the float result. benchmarks/h100/chain_lab.py times the
+// strip settings and counts the SASS an output. pipeline_f32 keeps
 // pipeline_u8's shared-memory tile: after the threshold every value is 0 or
 // 1, so the 3x3 min is an AND of bytes and the 1-2-1 blur is s / 16 with s
 // an integer in [0, 16], exact in float32 in any order; only the luma is
 // order-sensitive and it is computed as grayscale_f32 computes it.
-// Shared-memory tiles for window_f32, TMA and wgmma are later work.
 #include "common.cuh"
 
 namespace {
@@ -176,67 +187,6 @@ __device__ int ring_x(const Body&) { return Body::HX; }
 __device__ int ring_y(const Taps& b) { return b.hy; }
 __device__ int ring_x(const Taps& b) { return b.hx; }
 
-// Dense KH x KW correlation with a runtime float mask (row-major): for each
-// mask column kx, col = sum over ky ascending of x[ky][kx] * m[ky][kx],
-// then acc = sum over kx ascending of col. No rounding to u8.
-template <int KH, int KW>
-struct ConvDense {
-  static constexpr int HY = KH / 2, HX = KW / 2;
-  float w[KH * KW];
-  __device__ float operator()(const Plane& in, int y, int x) const {
-    float acc = 0.0f;
-#pragma unroll
-    for (int kx = 0; kx < KW; ++kx) {
-      float col = mul(in.at(y - HY, x + kx - HX), w[kx]);
-#pragma unroll
-      for (int ky = 1; ky < KH; ++ky)
-        col = add(col, mul(in.at(y + ky - HY, x + kx - HX), w[ky * KW + kx]));
-      acc = kx == 0 ? col : add(acc, col);
-    }
-    return acc;
-  }
-};
-
-// 1xN pass with the row mask, then Nx1 pass with the column mask over those
-// sums, with no rounding between (unlike the uint8 ConvSep). Each thread
-// recomputes the N horizontal sums it needs; the baked mirror rows make them
-// equal to the mirrored intermediate of the two-pass reference.
-template <int N>
-struct ConvSep {
-  static constexpr int HY = N / 2, HX = N / 2;
-  float wr[N];
-  float wc[N];
-  __device__ float operator()(const Plane& in, int y, int x) const {
-    float acc = 0.0f;
-#pragma unroll
-    for (int ky = 0; ky < N; ++ky) {
-      float row = mul(in.at(y + ky - HY, x - HX), wr[0]);
-#pragma unroll
-      for (int kx = 1; kx < N; ++kx)
-        row = add(row, mul(in.at(y + ky - HY, x + kx - HX), wr[kx]));
-      const float t = mul(row, wc[ky]);
-      acc = ky == 0 ? t : add(acc, t);
-    }
-    return acc;
-  }
-};
-
-// 0.25 / 0.5 / 0.25 compiled in: a vertical pass, then a horizontal one,
-// each (q * a + h * b) + q * c.
-struct Blur3x3 {
-  static constexpr int HY = 1, HX = 1;
-  __device__ float operator()(const Plane& in, int y, int x) const {
-    const float q = 0.25f, h = 0.5f;
-    float col[3];
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx)
-      col[dx + 1] = add(add(mul(q, in.at(y - 1, x + dx)),
-                            mul(h, in.at(y, x + dx))),
-                        mul(q, in.at(y + 1, x + dx)));
-    return add(add(mul(q, col[0]), mul(h, col[1])), mul(q, col[2]));
-  }
-};
-
 // in and out are (C, Hp, pitch); the grid is (pitch / 32, Hp / 8, C).
 template <class Body>
 __global__ void window_f32(const float* __restrict__ in,
@@ -266,12 +216,289 @@ int launch_window(const void* in, void* out, int channels, int hp, int pitch,
   return dip::launch_status();
 }
 
+// -- window_f32_strip: the convolution bodies ---------------------------------
+//
+// A thread owns kF32Vecs float4 of a row and walks a strip of kF32StripRows
+// output rows: each input row is loaded once per strip, 16 bytes a lane,
+// kF32PrefetchRows rows before its use; the HX <= 2 floats on either side
+// come from the neighbouring lanes by warp shuffle, and the warp's edge
+// lanes load those two floats themselves. A body keeps the last 2 HY + 1
+// rows (raw, or reduced to per-row partials) in a register ring that the
+// unrolled walk renames. The settings are the fastest on the H100 that
+// benchmarks/h100/chain_lab.py timed.
+constexpr int kF32StripRows = 4;
+constexpr int kF32PrefetchRows = 4;
+constexpr int kF32Vecs = 1;
+constexpr int kF32StripThreads = 128;
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kSpan = 4 * kF32Vecs;  // output floats of a thread's row
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Bodies: HY, HX; a Row made by row(x) from the thread's view of an input
+// row, x[0 .. kSpan + 2 HX): its own floats at x[HX ..] and HX floats on
+// either side; out(ring, o), the kSpan outputs of the row whose 2 HY + 1
+// input rows are ring[0] (topmost) .. ring[2 HY].
+
+// Dense KH x KW correlation with a runtime float mask (row-major), vertical
+// first as _make_conv sums: for each mask column kx, col = the sum over ky
+// ascending of x[ky][kx] * m[ky][kx]; then acc = the sum over kx ascending
+// of col. The ring holds raw rows: each tap has its own weight, so no
+// partial is shared between outputs. No rounding to u8.
+template <int KH, int KW>
+struct ConvDense {
+  static constexpr int HY = KH / 2, HX = KW / 2;
+  float w[KH * KW];
+  struct Row {
+    float f[kSpan + 2 * HX];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpan + 2 * HX]) const {
+    Row r;
+#pragma unroll
+    for (int c = 0; c < kSpan + 2 * HX; ++c) r.f[c] = x[c];
+    return r;
+  }
+  __device__ __forceinline__ void out(const Row (&ring)[KH],
+                                      float (&o)[kSpan]) const {
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int kx = 0; kx < KW; ++kx) {
+        float col = mul(ring[0].f[i + kx], w[kx]);
+#pragma unroll
+        for (int ky = 1; ky < KH; ++ky)
+          col = add(col, mul(ring[ky].f[i + kx], w[ky * KW + kx]));
+        acc = kx == 0 ? col : add(acc, col);
+      }
+      o[i] = acc;
+    }
+  }
+};
+
+// 1xN pass with the row mask, then Nx1 pass with the column mask over
+// those sums, unrounded between (unlike the uint8 ConvSep), horizontal
+// first as _make_conv_sep sums: the ring holds each input row's N-tap
+// partials, made once. The baked mirror rows make them equal to the
+// mirrored intermediate of the two-pass reference.
+template <int N>
+struct ConvSep {
+  static constexpr int HY = N / 2, HX = N / 2;
+  float wr[N], wc[N];
+  struct Row {
+    float p[kSpan];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpan + 2 * HX]) const {
+    Row r;
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i) {
+      float acc = mul(x[i], wr[0]);
+#pragma unroll
+      for (int kx = 1; kx < N; ++kx) acc = add(acc, mul(x[i + kx], wr[kx]));
+      r.p[i] = acc;
+    }
+    return r;
+  }
+  __device__ __forceinline__ void out(const Row (&ring)[N],
+                                      float (&o)[kSpan]) const {
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i) {
+      float acc = mul(ring[0].p[i], wc[0]);
+#pragma unroll
+      for (int ky = 1; ky < N; ++ky) acc = add(acc, mul(ring[ky].p[i], wc[ky]));
+      o[i] = acc;
+    }
+  }
+};
+
+// 0.25 / 0.5 / 0.25 compiled in, the ring of ConvDense<3, 3>: a vertical
+// pass per column over the three raw rows, then a horizontal pass, each
+// (q * a + h * b) + q * c, as _make_blur sums.
+struct Blur3x3 {
+  static constexpr int HY = 1, HX = 1;
+  struct Row {
+    float f[kSpan + 2];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpan + 2]) const {
+    Row r;
+#pragma unroll
+    for (int c = 0; c < kSpan + 2; ++c) r.f[c] = x[c];
+    return r;
+  }
+  __device__ __forceinline__ void out(const Row (&ring)[3],
+                                      float (&o)[kSpan]) const {
+    const float q = 0.25f, h = 0.5f;
+    float col[kSpan + 2];
+#pragma unroll
+    for (int c = 0; c < kSpan + 2; ++c)
+      col[c] = add(add(mul(q, ring[0].f[c]), mul(h, ring[1].f[c])),
+                   mul(q, ring[2].f[c]));
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i)
+      o[i] = add(add(mul(q, col[i]), mul(h, col[i + 1])), mul(q, col[i + 2]));
+  }
+};
+
+// One input row as a thread loads it: its float4s, and for the warp's edge
+// lanes the two floats beyond the warp's span.
+struct RowLoad4 {
+  float4 own[kF32Vecs];
+  float2 edge;
+};
+
+// Row y of the plane (pitch floats a row): the float4s from float4 column
+// at, and on an edge lane the two floats from float column beyond. A lane
+// past the row's end loads the row's last float4s, and an edge lane at the
+// row's ends its own; what they load reaches only the zero ring's columns.
+// kChecked strips load nothing for a row outside [0, hp), and give zeros.
+template <bool kChecked>
+__device__ __forceinline__ RowLoad4 fetch_row4(const float* __restrict__ plane,
+                                               int y, int hp, int pitch,
+                                               int at, int beyond,
+                                               bool edge_lane) {
+  RowLoad4 r;
+  if (kChecked && (y < 0 || y >= hp)) {
+#pragma unroll
+    for (int i = 0; i < kF32Vecs; ++i) r.own[i] = make_float4(0, 0, 0, 0);
+    r.edge = make_float2(0, 0);
+    return r;
+  }
+  const float* row = plane + static_cast<size_t>(y) * pitch;
+#pragma unroll
+  for (int i = 0; i < kF32Vecs; ++i)
+    r.own[i] = reinterpret_cast<const float4*>(row)[at + i];
+  r.edge = edge_lane ? *reinterpret_cast<const float2*>(row + beyond)
+                     : make_float2(0, 0);
+  return r;
+}
+
+// The loaded row as the thread's view x (see the bodies): the HX floats on
+// either side from the adjacent lanes, the edge lanes' from their own
+// load. Every lane of the warp calls this.
+template <int HX>
+__device__ __forceinline__ void spread_row4(const RowLoad4& r, int lane,
+                                            float (&x)[kSpan + 2 * HX]) {
+#pragma unroll
+  for (int i = 0; i < kF32Vecs; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[HX + 4 * i + c] = lane_of(r.own[i], c);
+  const float4& first = r.own[0];
+  const float4& last = r.own[kF32Vecs - 1];
+  const float l1 = __shfl_up_sync(kFullWarp, last.w, 1);
+  const float r1 = __shfl_down_sync(kFullWarp, first.x, 1);
+  x[HX - 1] = lane == 0 ? r.edge.y : l1;
+  x[HX + kSpan] = lane == 31 ? r.edge.x : r1;
+  if constexpr (HX == 2) {
+    const float l2 = __shfl_up_sync(kFullWarp, last.z, 1);
+    const float r2 = __shfl_down_sync(kFullWarp, first.y, 1);
+    x[0] = lane == 0 ? r.edge.x : l2;
+    x[kSpan + 3] = lane == 31 ? r.edge.y : r2;
+  }
+}
+
+// One strip: output rows [y0, y0 + kF32StripRows) of the thread's columns,
+// from input rows [y0 - HY, y0 + kF32StripRows + HY), each loaded once and
+// kF32PrefetchRows rows ahead of its use. An interior strip (kChecked
+// false) reads and writes only rows inside the plane and no row of the
+// zero ring; the others check.
+template <class Body, bool kChecked>
+__device__ __forceinline__ void strip_walk4(const Body& body,
+                                            const float* __restrict__ src,
+                                            float* __restrict__ dst, int hp,
+                                            int pitch, int v0, int lane,
+                                            int y0) {
+  constexpr int HY = Body::HY, HX = Body::HX;
+  constexpr int K = 2 * HY + 1, R = kF32StripRows + 2 * HY;
+  constexpr int D = kF32PrefetchRows < R ? kF32PrefetchRows : R;
+  using Row = typename Body::Row;
+  const int vecs = pitch >> 2;
+  const bool live = v0 < vecs;
+  const int at = live ? v0 : vecs - kF32Vecs;
+  const bool edge_lane = lane == 0 || lane == 31;
+  const int beyond =
+      min(max(lane == 0 ? 4 * at - 2 : 4 * (at + kF32Vecs), 0), pitch - 2);
+  // The zero ring's columns: the first HX floats of a row, the last HX.
+  bool keep[kSpan];
+#pragma unroll
+  for (int c = 0; c < kSpan; ++c)
+    keep[c] = 4 * v0 + c >= HX && 4 * v0 + c < pitch - HX;
+
+  RowLoad4 q[R];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+    q[i] = fetch_row4<kChecked>(src, y0 - HY + i, hp, pitch, at, beyond,
+                                edge_lane);
+  Row ring[K];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i + D < R)
+      q[i + D] = fetch_row4<kChecked>(src, y0 - HY + i + D, hp, pitch, at,
+                                      beyond, edge_lane);
+    float x[kSpan + 2 * HX];
+    spread_row4<HX>(q[i], lane, x);
+    ring[i < K - 1 ? i : K - 1] = body.row(x);
+    if (i < K - 1) continue;
+    const int y = y0 + i - (K - 1);
+    float o[kSpan];
+    body.out(ring, o);
+    const bool ring_row = kChecked && (y < HY || y >= hp - HY);
+#pragma unroll
+    for (int c = 0; c < kSpan; ++c) o[c] = ring_row || !keep[c] ? 0.0f : o[c];
+    if (live && (!kChecked || y < hp)) {
+      float4* p = reinterpret_cast<float4*>(dst + static_cast<size_t>(y) *
+                                                      pitch) + v0;
+#pragma unroll
+      for (int i = 0; i < kF32Vecs; ++i)
+        p[i] = make_float4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+    }
+#pragma unroll
+    for (int r = 0; r < K - 1; ++r) ring[r] = ring[r + 1];
+  }
+}
+
+// in and out are (C, Hp, pitch), pitch a multiple of 4 kF32Vecs; the grid
+// is (pitch / (4 kF32Vecs kF32StripThreads), Hp / kF32StripRows, C),
+// rounded up.
+template <class Body>
+__global__ void __launch_bounds__(kF32StripThreads)
+    window_f32_strip(const float* __restrict__ in, float* __restrict__ out,
+                     int hp, int pitch, const Body body) {
+  static_assert(Body::HX >= 1 && Body::HX <= 2,
+                "the neighbour lanes give 1 or 2 floats a side");
+  const int lane = threadIdx.x & 31;
+  const int v0 = (blockIdx.x * kF32StripThreads + threadIdx.x) * kF32Vecs;
+  const int y0 = blockIdx.y * kF32StripRows;
+  const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
+  if (y0 >= Body::HY && y0 + kF32StripRows + Body::HY <= hp)
+    strip_walk4<Body, false>(body, in + plane, out + plane, hp, pitch, v0,
+                             lane, y0);
+  else
+    strip_walk4<Body, true>(body, in + plane, out + plane, hp, pitch, v0,
+                            lane, y0);
+}
+
+template <class Body>
+int launch_strip(const void* in, void* out, int channels, int hp, int pitch,
+                 const Body& body, void* stream) {
+  if (pitch % kSpan != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = kF32StripThreads * kF32Vecs;
+  const dim3 grid((pitch / 4 + per_block - 1) / per_block,
+                  (hp + kF32StripRows - 1) / kF32StripRows, channels);
+  window_f32_strip<Body>
+      <<<grid, kF32StripThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
+          body);
+  return dip::launch_status();
+}
+
 template <int KH, int KW>
 int launch_conv_dense(const void* in, void* out, int channels, int hp,
                       int pitch, const float* w, void* stream) {
   ConvDense<KH, KW> body;
   for (int i = 0; i < KH * KW; ++i) body.w[i] = w[i];
-  return launch_window(in, out, channels, hp, pitch, body, stream);
+  return launch_strip(in, out, channels, hp, pitch, body, stream);
 }
 
 template <int N>
@@ -283,7 +510,7 @@ int launch_conv_sep(const void* in, void* out, int channels, int hp,
     body.wr[i] = wr[i];
     body.wc[i] = wc[i];
   }
-  return launch_window(in, out, channels, hp, pitch, body, stream);
+  return launch_strip(in, out, channels, hp, pitch, body, stream);
 }
 
 template <class Op>
@@ -441,7 +668,7 @@ DIP_API int dip_erosion_sep_f32(const void* in, void* out, int channels,
 
 DIP_API int dip_blur3x3_f32(const void* in, void* out, int channels, int hp,
                             int pitch, void* stream) {
-  return launch_window(in, out, channels, hp, pitch, Blur3x3{}, stream);
+  return launch_strip(in, out, channels, hp, pitch, Blur3x3{}, stream);
 }
 
 // Any structuring element: rows holds 2 * 8 + 1 row bitmasks (Taps), hy and

@@ -61,8 +61,10 @@ class BenchmarkSession:
         # The memory ops' payload: the data model's image on the host (the
         # CUDA.jl backend uploads the host-converted Float32 array,
         # cuda/benchmark.jl:171-173).
-        self._mem_host = torch.from_numpy(
-            oracle_f32.from_uint8_hwc(self.host_image) if f32
+        # Row-major (3, H, W) as the JAX package's device_put holds it:
+        # from_uint8_hwc returns a transposed (HWC-ordered) view.
+        self._mem_host = torch.from_numpy(np.ascontiguousarray(
+            oracle_f32.from_uint8_hwc(self.host_image)) if f32
             else self.host_image)
 
         # (a) initial upload: untimed session state (the Upload op re-does

@@ -11,7 +11,8 @@ tests/test_torch_f32.py (the interpret run may contract a multiply-add
 into an FMA), outside the don't-care mask where a Threshold follows a
 computed value. The port's own oracle checks are cheap (no JAX) and cover
 seeded random chains; the card-only tests at the end hold the CUDA kernels
-against the plain versions at tolerance 0 and skip without a card.
+against the plain versions at tolerance 0 (chain_u8 also at edge shapes and
+on random stage lists) and skip without a card.
 """
 
 import os
@@ -310,12 +311,53 @@ def test_descriptor_encoding():
     _, stages = chain._chain_stages(["Inversion", "Convolution-1x3+3x1"])
     w = [int(v) for v in np.ravel(spec.BLUR_1X3_INT)]
     s = spec.BLUR_SEP3_SHIFT
+    # uint8: a conv stage carries its rank-1 factors u (kh), then v (kw).
     assert chain._encode(stages, False).tolist() == [
-        1, 1, 1, 0, 0, 4, 1, 3, s, *w, 4, 3, 1, s, *w]
+        1, 1, 1, 0, 0, 4, 1, 3, s, 1, *w, 4, 3, 1, s, *w, 1]
+    # float32: its kh * kw weights int / 2**shift, as float bits.
     words = chain._encode(stages, True)
+    assert words.size == 5 + 2 * (4 + 3)
     floats = words[5 + 4:5 + 4 + 3].view(np.float32)
     np.testing.assert_array_equal(
         floats, np.ravel(spec.mask_float(spec.BLUR_1X3_INT, s)))
+
+
+def conv_columns():
+    return [c for c in POOL if c.startswith(("Convolution", "Gaussian"))]
+
+
+@pytest.mark.parametrize("col", conv_columns())
+def test_uint8_conv_stages_carry_factors_of_their_mask(col):
+    # Each factor pair multiplies back to the stage's integer mask exactly,
+    # within the packed-16 bound that chain.cu checks on the host copy.
+    _, stages = chain._chain_stages([col])
+    words = chain._encode(stages, False).tolist()
+    i = 0
+    for stage in stages:
+        kind, kh, kw, shift = words[i:i + 4]
+        assert (kind, kh, kw, shift) == (chain.KINDS["conv"],
+                                         *stage.mask.shape, stage.shift)
+        u = np.array(words[i + 4:i + 4 + kh])
+        v = np.array(words[i + 4 + kh:i + 4 + kh + kw])
+        np.testing.assert_array_equal(np.outer(u, v), stage.mask)
+        assert (u >= 0).all() and (v >= 0).all()
+        assert 255 * u.sum() * v.sum() + ((1 << shift) >> 1) < 1 << 16
+        i += 4 + kh + kw
+    assert i == len(words)
+
+
+@pytest.mark.parametrize("mask,shift", [
+    (np.array([[1, 2, 1], [2, 1, 2], [1, 2, 1]]), 4),
+    (np.outer([1, 2, 1], [-1, 4, -1]), 2),
+    (np.outer([1, 4, 6, 4, 1], [2, 4, 6, 4, 1]), 8),
+    (spec.BLUR_3X3_INT, 16),
+], ids=["rank-2", "negative", "fields-carry", "shift-16"])
+def test_uint8_descriptor_refuses_a_mask_without_factors(mask, shift):
+    stage = chain.Stage("conv", mask.astype(np.int32), shift)
+    with pytest.raises(ValueError, match="rank-1 integer factors"):
+        chain._encode([stage], False)
+    # The float32 chain takes any mask as its weights.
+    assert chain._encode([stage], True).size == 4 + mask.size
 
 
 def test_kernel_constants_equal_the_port():
@@ -323,12 +365,17 @@ def test_kernel_constants_equal_the_port():
     with open(os.path.join(CSRC, "chain.cu")) as f:
         src = f.read()
     consts = {m[0]: int(m[1])
-              for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+              for m in re.findall(r"constexpr int (k\w+) = (-?\d+);", src)}
     assert consts["kThresholdU8"] == spec.THRESHOLD_VALUE
     assert consts["kThresholdMaxU8"] == spec.THRESHOLD_MAX
     assert consts["kMaxRadius"] == chain.MAX_CHAIN_RADIUS
     assert {k: consts["k" + k.capitalize()] for k in chain.KINDS} == \
         chain.KINDS
+    # A point stage is the header and one word; chain_u8's halo words
+    # cover the deepest chain.
+    assert chain._encode([chain.Stage("copy")], False).size == \
+        consts["kHeader"] + 1
+    assert 4 * consts["kHaloWords"] >= chain.MAX_CHAIN_RADIUS
 
 
 # -- refusals: the same text in both packages ------------------------------
@@ -494,6 +541,42 @@ def test_kernel_matches_plain_on_card(cols, dtype):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {make(layout, cols).kernel: 1}
     assert torch.equal(got, chain.fused_chain_plain(stack, cols, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["C1", "C2", "C3", "C4", "G"])
+def test_kernel_matches_plain_on_card_at_edges(name):
+    # chip_smoke.py phase 3g: the smallest image the chain takes, rows that
+    # end short of a tile, 2341x3501 and raw buffers, one image and B=2.
+    card()
+    import chip_smoke
+    cols = chip_smoke.CHECKED_CHAINS[name]
+    rng = np.random.default_rng(len(cols))
+    for label, planar in chip_smoke.chain_edge_inputs(rng, cols):
+        shape = tuple(planar.shape)
+        planar = planar.cuda()
+        stack = torch.stack([planar, planar.flip(-1).contiguous()])
+        for p, b in ((planar, 0), (stack, 2)):
+            got = chip_smoke.raw_chain(shape, cols, b)(p)
+            torch.cuda.synchronize()
+            assert torch.equal(got, chain.fused_chain_plain(p, cols)), (
+                f"{name} on {label}, batch {b}")
+
+
+@pytest.mark.cuda
+def test_random_stage_lists_match_plain_on_card():
+    # chip_smoke.py phase 3g: rank-1 masks that clamp, shifts above 8,
+    # separated pairs, min and point stages, on raw buffers.
+    card()
+    import chip_smoke
+    rng = np.random.default_rng(11)
+    for shape in chip_smoke.CHAIN_EDGE_BUFFERS:
+        planar = torch.from_numpy(rng.integers(0, 256, shape,
+                                               np.uint8)).cuda()
+        for stages in chip_smoke.random_chain_stages(rng, 12):
+            got = chip_smoke.stages_u8(stages, planar)
+            torch.cuda.synchronize()
+            assert torch.equal(got, chip_smoke.stages_plain(stages, planar))
 
 
 @pytest.mark.cuda

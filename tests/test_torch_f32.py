@@ -7,9 +7,10 @@ port gets the identical buffer through from_jax_planar and, on CPU
 tensors, runs each op's plain PyTorch version. The JAX kernels leave rows
 outside their bands unwritten, so they are compared on the crop only.
 Tolerance ``atol=3e-7`` on [0, 1] values, as in tests/test_f32_path.py:
-XLA may contract a multiply-add into an FMA (2 ulp). The card-only test at
-the end holds the CUDA kernels against the same plain versions at
-tolerance 0; it skips without a CUDA device.
+XLA may contract a multiply-add into an FMA (2 ulp). The card-only tests at
+the end hold the CUDA kernels against the same plain versions at
+tolerance 0, the convolution bodies also at edge shapes with random masks;
+they skip without a CUDA device.
 """
 
 import os
@@ -259,6 +260,20 @@ def test_f32_session_state(small_image):
         BenchmarkSession(small_image, "cpu", dtype="float16")
 
 
+def test_f32_memory_payload_is_contiguous_chw(small_image):
+    # Upload moves the (3, H, W) array row-major, as the JAX package's
+    # device_put holds it, and Download returns it the same way.
+    h, w, _ = small_image.shape
+    session = BenchmarkSession(small_image, "cpu", dtype="float32")
+    assert tuple(session._mem_host.shape) == (3, h, w)
+    assert session._mem_host.is_contiguous()
+    assert session._mem_host.numpy().flags["C_CONTIGUOUS"]
+    assert session._upload().is_contiguous()
+    got = session._download()
+    assert got.flags["C_CONTIGUOUS"] and got.shape == (3, h, w)
+    np.testing.assert_array_equal(got, oracle_f32.from_uint8_hwc(small_image))
+
+
 def table_rows(text: str) -> list[str]:
     return [ln for ln in text.splitlines() if ln.startswith("| ")]
 
@@ -327,3 +342,31 @@ def test_f32_kernel_matches_plain_on_card(col, small_image, fundus_crop):
         if mask is not None:
             delta[mask] = 0
         assert delta.max() <= 1
+
+
+EDGES = [f"{h}x{w}" for h, w in ((3, 3), (3, 12), (5, 28), (64, 124),
+                                 (2341, 3501))] + [
+    "raw (3, 3, 16)", "raw (1, 70, 4112)"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", EDGES)
+def test_f32_strip_bodies_match_plain_on_card_at_edges(edge):
+    # chip_smoke.py phase 3h: window_f32_strip's bodies with random float
+    # masks, whole buffer, tolerance 0.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import chip_smoke
+    rng = np.random.default_rng(EDGES.index(edge))
+    if edge.startswith("raw"):
+        shape = tuple(int(s) for s in edge[5:-1].split(","))
+        planar = torch.from_numpy(rng.random(shape, dtype=np.float32))
+    else:
+        h, w = (int(s) for s in edge.split("x"))
+        planar = to_planar_padded_f32(
+            rng.integers(0, 256, (h, w, 3), np.uint8), make_layout(h, w))
+    planar = planar.cuda()
+    for what, name, fn, plain in chip_smoke.f32_edge_bodies(rng):
+        got = fn(planar)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(planar)), f"{name} ({what}) on {edge}"
