@@ -45,7 +45,7 @@ from dip_benchmark_tpu_torch.utils.testimage import resolve_image  # noqa: E402
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: covers the host's queueing
 KERNEL_NAMES = ("copy_u8", "point_u8", "grayscale_u8", "window_u8",
                 "pipeline_u8", "point_f32", "grayscale_f32", "window_f32",
-                "pipeline_f32", "chain_u8", "chain_kernel")
+                "pipeline_f32", "chain_u8", "chain_f32")
 # data model -> (its ops, its layout bake)
 MODELS = {"uint8": (OPS, to_planar_padded),
           "float32": (OPS_F32, to_planar_padded_f32)}

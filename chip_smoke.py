@@ -47,6 +47,12 @@ csrc`` with nvcc, then, with no fallback anywhere:
    [3h] every body of ``window_f32_strip`` (the float32 convolutions and
    blur), random float masks among them, the same way at ``EDGE_IMAGES``
    and ``EDGE_BUFFERS``;
+   [3i] ``chain_f32`` the way [3g] holds ``chain_u8``, at the same shapes
+   as float32 planars, and on 12 random float32 stage lists (masks of
+   10-bit ints of either sign over 2^10, separated pairs, min and point
+   stages);
+   [3j] ``pipeline_u8`` at ``EDGE_IMAGES`` and at ``EDGE_BUFFERS``' heights
+   and pitches (three planes), alone and on stacks of 1, 2 and 3;
 4. drives the port's CLI once at full size (``--rounds 50 --verify
    --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
    requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
@@ -105,7 +111,8 @@ import torch.nn.functional as F
 
 from dip_benchmark_tpu_torch import cli, oracle, oracle_f32, spec
 from dip_benchmark_tpu_torch.models import batch, chain
-from dip_benchmark_tpu_torch.models.pipeline import fused_pipeline
+from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
+                                                     fused_pipeline_plain)
 from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32, f32,
                                          kernels, window)
 from dip_benchmark_tpu_torch.ops.kernels import build
@@ -750,23 +757,28 @@ def chain_edge_inputs(rng, cols) -> list:
         CHAIN_EDGE_BUFFERS]
 
 
-def raw_chain(shape, cols, batch: int = 0):
-    """The uint8 chain ``cols`` for any (C, Hp, pitch) buffer ``shape``,
-    through a stand-in for its layout (the chain reads only these three
-    fields), with the deepest halo."""
+def raw_chain(shape, cols, batch: int = 0, dtype: str = "uint8"):
+    """The chain ``cols`` in data model ``dtype`` for any (C, Hp, pitch)
+    buffer ``shape``, through a stand-in for its layout (the chain reads
+    only these three fields), with the deepest halo."""
     layout = types.SimpleNamespace(pad=chain.MAX_CHAIN_RADIUS,
                                    channels=shape[0], shape=tuple(shape))
-    return chain.make_fused_chain(layout, cols, batch=batch)
+    return chain.FusedChain(layout, cols, dtype, batch)
 
 
-def random_chain_stages(rng, n: int) -> list:
-    """``n`` stage lists for chain_u8 that no column name makes: rank-1
-    masks with random nonnegative factors and shifts (sums that clamp,
-    shifts above 8), 1xN stages right before Nx1 ones, min and point stages,
-    radii summing to at most 8."""
+def random_chain_stages(rng, n: int, float32: bool = False) -> list:
+    """``n`` stage lists that no column name makes, radii summing to at most
+    8, with 1xN stages right before Nx1 ones, min and point stages: for
+    chain_u8, rank-1 masks with random nonnegative factors and shifts (sums
+    that clamp, shifts above 8); for chain_f32 (``float32``), random float
+    masks, ints of up to 10 bits (either sign) over 2^10, so that most
+    products round."""
     shapes = ((3, 3), (5, 5), (1, 3), (3, 1), (1, 5), (5, 1))
 
     def conv(kh, kw):
+        if float32:
+            return chain.Stage("conv", rng.integers(
+                -1023, 1024, (kh, kw)).astype(np.int32), 10)
         while True:
             u, v = rng.integers(0, 5, kh), rng.integers(0, 5, kw)
             u[kh // 2] += 1
@@ -802,49 +814,68 @@ def random_chain_stages(rng, n: int) -> list:
     return out
 
 
-def stages_u8(stages, planar: torch.Tensor) -> torch.Tensor:
-    """chain_u8 on a stage list itself, one launch over every plane of
-    ``planar`` (one image or a stack)."""
-    words = chain._encode(stages, False)
+def chain_stages(stages, planar: torch.Tensor) -> torch.Tensor:
+    """chain_u8 (chain_f32 for a float32 ``planar``) on a stage list itself,
+    one launch over every plane of ``planar`` (one image or a stack)."""
+    float32 = planar.dtype == torch.float32
+    words = chain._encode(stages, float32)
     host = (ctypes.c_int * len(words))(*words.tolist())
     dev = torch.from_numpy(words).to(planar.device)
     out = torch.empty_like(planar)
     hp, pitch = planar.shape[-2:]
-    kernels.launch("chain_u8", "dip_chain_u8", planar.device,
-                   planar.data_ptr(), out.data_ptr(),
-                   planar.numel() // (hp * pitch), hp, pitch, 0,
-                   dev.data_ptr(), host, len(words),
-                   *spec.GRAYSCALE_WEIGHTS_INT_RGB, spec.GRAYSCALE_SHIFT)
+    kernel, entry, luma = (
+        ("chain_f32", "dip_chain_f32", f32.LUMA) if float32 else
+        ("chain_u8", "dip_chain_u8", (*spec.GRAYSCALE_WEIGHTS_INT_RGB,
+                                      spec.GRAYSCALE_SHIFT)))
+    kernels.launch(kernel, entry, planar.device, planar.data_ptr(),
+                   out.data_ptr(), planar.numel() // (hp * pitch), hp, pitch,
+                   0, dev.data_ptr(), host, len(words), *luma)
     return out
 
 
 def stages_plain(stages, planar: torch.Tensor) -> torch.Tensor:
-    """The plain stages composed, then the chain's zero ring."""
+    """The plain stages composed, then the chain's zero ring, in the data
+    model of ``planar``'s dtype."""
+    float32 = planar.dtype == torch.float32
     p = planar.reshape(-1, *planar.shape[-2:])
     for st in stages:
-        p = chain._stage_plain(st, p, False)
+        p = chain._stage_plain(st, p, float32)
     return window.zero_ring(p.clone(), sum(st.ry for st in stages),
                             sum(st.rx for st in stages)).reshape(
                                 planar.shape)
 
 
-def compare_chain_edges(rng) -> dict:
-    """chain_u8 against fused_chain_plain on the whole buffer, tolerance 0,
-    for C1-C4 and Grayscale alone, on one image and on a stack of two, at
-    ``chain_edge_inputs``; the largest |kernel - plain| per chain."""
+def compare_chain_edges(rng, dtype: str = "uint8") -> dict:
+    """chain_u8 (chain_f32 with ``dtype`` float32) against
+    fused_chain_plain on the whole buffer, tolerance 0, for C1-C4 and
+    Grayscale alone, on one image and on a stack of two, at
+    ``chain_edge_inputs``' shapes (as float32 planars, raw buffers of random
+    floats in [0, 1), for chain_f32), and on 12 random stage lists
+    (``random_chain_stages``); the largest |kernel - plain| per chain."""
+    float32 = dtype == "float32"
+    name_of = "chain_f32" if float32 else "chain_u8"
+
+    def model(label, planar):
+        if not float32:
+            return planar
+        if label.startswith("raw"):
+            return torch.from_numpy(rng.random(tuple(planar.shape),
+                                               dtype=np.float32))
+        return planar.float() / 255
+
     errs = {}
     for name, cols in CHECKED_CHAINS.items():
         for label, planar in chain_edge_inputs(rng, cols):
             shape = tuple(planar.shape)
-            planar = planar.cuda()
+            planar = model(label, planar).cuda()
             stack = torch.stack([planar, planar.flip(-1).contiguous()])
             for p, batch in ((planar, 0), (stack, 2)):
-                got = raw_chain(shape, cols, batch)(p)
-                want = chain.fused_chain_plain(p, cols)
+                got = raw_chain(shape, cols, batch, dtype)(p)
+                want = chain.fused_chain_plain(p, cols, dtype)
                 torch.cuda.synchronize()
                 err = max_delta(got, want)
                 errs[name] = max(errs.get(name, 0.0), err)
-                check(torch.equal(got, want), f"chain_u8 {name} on {label} "
+                check(torch.equal(got, want), f"{name_of} {name} on {label} "
                       f"(batch {batch}): kernel differs from its plain "
                       f"version (max |delta| {err})")
         print(f"  {name} {','.join(cols)}: equal to its plain version at "
@@ -854,22 +885,61 @@ def compare_chain_edges(rng) -> dict:
         make_layout(33, 481, pad=8)))] + [
         (f"raw {shape}", torch.from_numpy(rng.integers(
             0, 256, shape, np.uint8))) for shape in CHAIN_EDGE_BUFFERS]
-    stage_lists = random_chain_stages(rng, 12)
+    stage_lists = random_chain_stages(rng, 12, float32)
     for label, planar in inputs:
-        planar = planar.cuda()
+        planar = model(label, planar).cuda()
         for stages in stage_lists:
-            got, want = stages_u8(stages, planar), stages_plain(stages,
-                                                                planar)
+            got, want = chain_stages(stages, planar), stages_plain(stages,
+                                                                   planar)
             torch.cuda.synchronize()
             err = max_delta(got, want)
             errs["random"] = max(errs.get("random", 0.0), err)
-            check(torch.equal(got, want), f"chain_u8 on {label}, stages "
+            check(torch.equal(got, want), f"{name_of} on {label}, stages "
                   f"{[(st.kind, st.mask.tolist(), st.shift) for st in stages]}"
                   f": kernel differs from its plain version (max |delta| "
                   f"{err})")
-    print(f"  {len(stage_lists)} random stage lists (rank-1 masks that "
-          f"clamp, shifts up to 11): equal to their plain versions")
+    what = ("masks of 10-bit ints over 2^10, separated pairs" if float32
+            else "rank-1 masks that clamp, shifts up to 11")
+    print(f"  {len(stage_lists)} random stage lists ({what}): equal to their "
+          f"plain versions")
     return errs
+
+
+def pipeline_edge_inputs(rng) -> list:
+    """(label, (3, Hp, pitch) uint8 planar on the CPU) for pipeline_u8:
+    EDGE_IMAGES, and EDGE_BUFFERS' heights and pitches as raw three-plane
+    buffers."""
+    inputs = [(f"{h}x{w}", to_planar_padded(
+        rng.integers(0, 256, (h, w, 3), np.uint8), make_layout(h, w)))
+        for h, w in EDGE_IMAGES]
+    return inputs + [(f"raw {(3, *shape[1:])}", torch.from_numpy(
+        rng.integers(0, 256, (3, *shape[1:]), np.uint8)))
+        for shape in EDGE_BUFFERS]
+
+
+def compare_pipeline_edges(rng) -> float:
+    """pipeline_u8 against fused_pipeline_plain on the whole buffer,
+    tolerance 0, at ``pipeline_edge_inputs`` alone and on stacks of 1, 2
+    and 3 (the image, its mirror, noise); the largest |kernel - plain|."""
+    worst = 0.0
+    for label, planar in pipeline_edge_inputs(rng):
+        planar = planar.cuda()
+        others = [planar.flip(-1).contiguous(), torch.from_numpy(
+            rng.integers(0, 256, tuple(planar.shape), np.uint8)).cuda()]
+        cases = [planar] + [torch.stack([planar, *others][:b])
+                            for b in (1, 2, 3)]
+        for p in cases:
+            got = fused_pipeline(p)
+            want = fused_pipeline_plain(p)
+            torch.cuda.synchronize()
+            err = max_delta(got, want)
+            worst = max(worst, err)
+            check(torch.equal(got, want), f"pipeline_u8 on {label}, shape "
+                  f"{tuple(p.shape)}: kernel differs from its plain version "
+                  f"(max |delta| {err})")
+        print(f"  {label} {tuple(planar.shape)}: pipeline_u8 equal to its "
+              f"plain version alone and on stacks of 1, 2, 3")
+    return worst
 
 
 def f32_edge_bodies(rng) -> list:
@@ -1271,9 +1341,19 @@ def main() -> int:
     print("[3h] window_f32_strip bodies at word and strip edges, random "
           "masks: kernel against plain version, tolerance 0")
     f32_edge_errs = compare_f32_window_edges(rng)
-    for name, err in chain_edge_errs.items():
-        if name in chain_errs["uint8"]:
-            chain_errs["uint8"][name] = max(chain_errs["uint8"][name], err)
+    print("[3i] chain_f32 at the smallest image of each chain, tile and "
+          "strip edges, one image and B=2, random float32 stage lists: "
+          "kernel against plain version, tolerance 0")
+    chain_f32_edge_errs = compare_chain_edges(rng, "float32")
+    print("[3j] pipeline_u8 at word, strip and row edges, alone and on "
+          "stacks of 1, 2, 3: kernel against plain version, tolerance 0")
+    errs["uint8"]["Fused-Pipeline"] = max(errs["uint8"]["Fused-Pipeline"],
+                                          compare_pipeline_edges(rng))
+    for dtype, edge in (("uint8", chain_edge_errs),
+                        ("float32", chain_f32_edge_errs)):
+        for name, err in edge.items():
+            if name in chain_errs[dtype]:
+                chain_errs[dtype][name] = max(chain_errs[dtype][name], err)
     for col, (name, *_) in KERNELS_F32.items():
         if name in f32_edge_errs:
             errs["float32"][col] = max(errs["float32"][col],

@@ -78,11 +78,48 @@
 // warp's ends, a strip recomputes 2 Ry rows, and its global loads and
 // stores are one word a lane.
 //
-// Arithmetic of chain_f32 (unchanged from its first version): floats, every
-// multiply and add __fmul_rn / __fadd_rn, which nvcc never contracts into
-// an FMA, in the JAX stage order: for each mask column kx the sum over ky,
-// then the column sums over kx (_conv_rank1_f32); the luma
-// (wr * R + wg * G) + wb * B.
+// chain_f32, the design (its first version loaded a window of
+// scalars from a float tile for every strip of two outputs, one LDS a tap,
+// and stored one float a lane: it lost to the port's unfused kernels on
+// C1, C3 and C4). It carries over what window_f32_strip (f32.cu) measured
+// to work, on chain_u8's tile:
+// - a block owns a tile of kChainRows output rows and 4 kTileF4 floats of a
+//   row, halo included (kHaloF4 float4 a side), and loads it once, with the
+//   chain's Ry rows a side, as float4 (gray first: the luma of the three
+//   planes' float4), through the point stages before the first windowed
+//   one;
+// - each windowed stage but the last reads one tile buffer and writes the
+//   other; the last writes the output planes itself (its own float4, 0 in
+//   the ring), so the other buffer is free while it runs. A block stays
+//   resident and takes tile after tile (one block per resident slot of
+//   the card), and during a tile's last stage the next tile is copied
+//   into the free buffer in the background (cp.async, no registers), so
+//   its load overlaps this tile's compute; a Grayscale-first chain, whose
+//   load computes the luma, loads each tile directly. A warp
+//   owns 32 lanes of kChainVecs float4 of a row and walks a strip of the
+//   stage's rows: a lane reads each input row once, one 16-byte shared
+//   load a float4, the HX <= 2 floats on either side from the adjacent
+//   lanes by shuffle (the warp's edge lanes from one 8-byte load), and
+//   keeps a register ring of the last 2 HY + 1 rows that the loop,
+//   unrolled by whole turns of the ring, renames rather than moves;
+// - the arithmetic is the JAX stage order, every multiply and add
+//   __fmul_rn / __fadd_rn, which nvcc never contracts into an FMA: a dense
+//   stage (_conv_rank1_f32) sums each mask column over ky, then the column
+//   sums over kx, so its ring holds raw rows (no rank-1 shortcut keeps that
+//   order); a 1xN stage and the Nx1 stage right after it
+//   (_conv_separated_f32) run as one walk, the row pass in kx order making
+//   the ring entry and the column pass adding the entries in ky order; the
+//   luma is (wr * R + wg * G) + wb * B;
+// - a run of point stages is folded once per stage (RunF32) and applied to
+//   the walk's outputs before they are stored; a stage with no point stage
+//   after it runs a walk without it.
+// What bounds it is FP32 issue: a 5x5 stage walk spends about 55 SASS an
+// output, 49 of them the stage's own multiplies and adds, which no order-
+// keeping rewrite removes. benchmarks/h100/chain_lab.py times the tile
+// settings (the defaults are its fastest) and counts the SASS an output of
+// each stage walk.
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 #include "words.cuh"
 
@@ -630,250 +667,590 @@ __global__ void __launch_bounds__(kU8Block, kU8BlocksPerSM)
 
 // -- chain_f32 --------------------------------------------------------------
 
-constexpr int kTileW = 128;    // output columns of a block
-constexpr int kTileH = 32;     // output rows of a block
+// The tile (the fastest settings on the H100; chain_lab.py times others).
+constexpr int kChainRows = 80;        // output rows of a tile
+constexpr int kChainVecs = 1;         // float4 of a row a lane owns
+constexpr int kChainGroups = 1;       // warps side by side across a tile row
+constexpr int kChainThreads = 256;    // threads of a block
+constexpr int kChainBlocksPerSM = 2;  // resident blocks: the register cap
+constexpr int kChainLoadBatch = 4;    // float4 loads a thread keeps in flight
+constexpr int kHaloF4 = 2;            // float4 of halo a tile side
+constexpr int kSpanF = 4 * kChainVecs;  // floats of a row a lane owns
+// float4 of a tile row, halo included: the lanes of kChainGroups warps.
+constexpr int kTileF4 = 32 * kChainVecs * kChainGroups;
+// A tile row in shared memory: 4 floats of slack a side, which the warp's
+// edge lanes read as a neighbour (they reach only halo columns).
+constexpr int kStrideF = 4 * kTileF4 + 8;
+constexpr int kStrips = kChainThreads / 32 / kChainGroups;
+constexpr unsigned kFullWarp = 0xffffffffu;
+static_assert(kChainThreads % (32 * kChainGroups) == 0,
+              "whole warps, kChainGroups of them across a row");
+static_assert(4 * kHaloF4 >= kMaxRadius, "the halo covers the deepest chain");
 
-struct F32 {
-  using T = float;
-  using W = float;
-  struct Luma {
-    float r, g, b;
-  };
-  __device__ static T gray(T r, T g, T b, const Luma& l) {
-    return __fadd_rn(__fadd_rn(__fmul_rn(l.r, r), __fmul_rn(l.g, g)),
-                     __fmul_rn(l.b, b));
-  }
-  __device__ static T point(int kind, T v) {
-    if (kind == kInvert) return __fsub_rn(1.0f, v);
-    if (kind == kThreshold) return v > 0.5f ? 1.0f : 0.0f;
-    return v;
-  }
-  __device__ static T top() { return __int_as_float(0x7f800000); }  // +inf
-  __device__ static T lesser(T a, T b) { return fminf(a, b); }
-  __device__ static W weight(int word) { return __int_as_float(word); }
-  template <int KH, int KW>
-  __device__ static T conv(const T* p, int stride, const W* w, int) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int kx = 0; kx < KW; ++kx) {
-      float col = __fmul_rn(p[kx], w[kx]);
-#pragma unroll
-      for (int ky = 1; ky < KH; ++ky)
-        col = __fadd_rn(col, __fmul_rn(p[ky * stride + kx], w[ky * KW + kx]));
-      acc = kx == 0 ? col : __fadd_rn(acc, col);
-    }
-    return acc;
-  }
-};
-
-// Each buffer is bh x bw plus kRows - 1 rows of slack, which a thread's
-// last strip may read past the region it computes; those rows only reach
-// outputs that are not written.
-constexpr int kRows = 2;        // output rows of a thread's strip
-constexpr int kWarp = 32;
-constexpr int kBlock = 256;     // threads of a block
-// Blocks an SM keeps resident: the compiler holds a thread to 64 registers
-// for it. Taller strips save shared-memory loads but need more registers,
-// and the blocks an SM then loses cost more than the loads saved.
-constexpr int kBlocksPerSM = 4;
-
-// The run of n point stages at run (each kHeader + 1 words) applied to v.
-template <class M>
-__device__ typename M::T apply_run(typename M::T v, const int* run, int n) {
-  for (int k = 0; k < n; ++k) v = M::point(__ldg(run + k * (kHeader + 1)), v);
-  return v;
+__device__ __forceinline__ float fmul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float fadd(float a, float b) {
+  return __fadd_rn(a, b);
 }
 
-// A kh x kw correlation of the registers x[v .. v + KH - 1][0 .. KW - 1].
-template <class M, int KH, int KW>
-struct ConvOp {
-  typename M::W w[KH * KW];
-  int shift;
-  template <int R>
-  __device__ typename M::T operator()(const typename M::T (&x)[R][KW],
-                                      int v) const {
-    return M::template conv<KH, KW>(&x[v][0], KW, w, shift);
-  }
+struct F32Luma {
+  float r, g, b;
 };
 
-// The min over the taps of a 3x3 structuring element (weights 0 or 1).
-template <class M>
-struct MinOp {
-  int taps[9];
-  template <int R>
-  __device__ typename M::T operator()(const typename M::T (&x)[R][3],
-                                      int v) const {
-    typename M::T m = M::top();
-#pragma unroll
-    for (int k = 0; k < 9; ++k)
-      if (taps[k]) m = M::lesser(m, x[v + k / 3][k % 3]);
-    return m;
-  }
-};
+// The luma in the JAX stage's order, (wr * R + wg * G) + wb * B.
+__device__ __forceinline__ float luma_of(float r, float g, float b,
+                                         const F32Luma& l) {
+  return fadd(fadd(fmul(l.r, r), fmul(l.g, g)), fmul(l.b, b));
+}
 
-// One windowed stage: rows [ny, bh - ny) and columns [nx, bw - nx) of dst
-// from src, then the run of point stages after it. A thread computes a
-// strip of kRows outputs of one column from the (kRows + KH - 1) x KW
-// window it loads once into registers.
-template <class M, int KH, int KW, class Op>
-__device__ void window_stage(const typename M::T* src, typename M::T* dst,
-                             int bh, int bw, int ny, int nx, const Op& op,
-                             const int* run, int n_run) {
-  using T = typename M::T;
-  const int rh = bh - 2 * ny, rw = bw - 2 * nx;
-  const int groups = (rh + kRows - 1) / kRows;
-  // Strip (g, j) is column j of row group g, taken in row-major order:
-  // neighbouring threads take neighbouring columns, and every lane has
-  // work until the last strip. One division a stage, none a strip.
-  const int step_g = kBlock / rw, step_j = kBlock - step_g * rw;
-  int g = threadIdx.x / rw, j = threadIdx.x - g * rw;
-  while (g < groups) {
-    const int i0 = g * kRows;
-    const T* p = src + (ny + i0 - KH / 2) * bw + nx + j - KW / 2;
-    T x[kRows + KH - 1][KW];
+// A run of point stages as it acts on floats: inv inversions 1 - v one
+// after another (each rounds, so they do not cancel), then, if the run has
+// a threshold, v > 0.5, xor flip. Every stage after the first threshold
+// sees 0 or 1, where a threshold changes nothing and an inversion is exact,
+// so the parity of the later inversions is the whole rest of the run. The
+// inversion loop is kept rolled: unrolled inside a stage walk it cost the
+// walk twice its instructions.
+struct RunF32 {
+  int inv;
+  bool threshold, flip;
+  template <int N>
+  __device__ __forceinline__ void operator()(float (&v)[N]) const {
+#pragma unroll 1
+    for (int i = 0; i < inv; ++i) {
 #pragma unroll
-    for (int r = 0; r < kRows + KH - 1; ++r)
+      for (int c = 0; c < N; ++c) v[c] = __fsub_rn(1.0f, v[c]);
+    }
+    if (threshold) {
 #pragma unroll
-      for (int kx = 0; kx < KW; ++kx) x[r][kx] = p[r * bw + kx];
-    T* q = dst + (ny + i0) * bw + nx + j;
-#pragma unroll
-    for (int v = 0; v < kRows; ++v)
-      if (i0 + v < rh) q[v * bw] = apply_run<M>(op(x, v), run, n_run);
-    g += step_g;
-    j += step_j;
-    if (j >= rw) {
-      j -= rw;
-      ++g;
+      for (int c = 0; c < N; ++c) v[c] = (v[c] > 0.5f) != flip ? 1.0f : 0.0f;
     }
   }
-}
+  __device__ __forceinline__ bool identity() const {
+    return inv == 0 && !threshold;
+  }
+};
 
-template <class M, int KH, int KW>
-__device__ void conv_stage(const typename M::T* src, typename M::T* dst,
-                           int bh, int bw, int ny, int nx, const int* wd,
-                           int shift, const int* run, int n_run) {
-  ConvOp<M, KH, KW> op;
-#pragma unroll
-  for (int k = 0; k < KH * KW; ++k) op.w[k] = M::weight(__ldg(wd + k));
-  op.shift = shift;
-  window_stage<M, KH, KW>(src, dst, bh, bw, ny, nx, op, run, n_run);
-}
-
-// Skip the point stages at *d, at most n_stages - *s of them; their count.
-__device__ int skip_points(const int** d, int* s, int n_stages) {
-  int n = 0;
-  while (*s < n_stages && __ldg(*d) < kMin) {
+// Fold the point stages at *d, at most n_stages - *s of them.
+__device__ RunF32 fold_points_f32(const int** d, int* s, int n_stages) {
+  RunF32 run{0, false, false};
+  while (*s < n_stages) {
+    const int kind = __ldg(*d);
+    if (kind == kInvert) {
+      if (run.threshold)
+        run.flip = !run.flip;
+      else
+        ++run.inv;
+    } else if (kind == kThreshold) {
+      run.threshold = true;
+    } else if (kind != kCopy) {
+      break;
+    }
     *d += kHeader + 1;
     ++*s;
-    ++n;
   }
-  return n;
+  return run;
 }
 
-// in and out are (count * (kGray ? 3 : 1), hp, pitch); the grid is
-// (ceil(pitch / kTileW), ceil(hp / kTileH), count) of kBlock threads;
-// dynamic shared memory holds two (kTileH + 2 ry + kRows - 1) x
-// (kTileW + 2 rx) buffers.
-template <class M, bool kGray>
-__global__ void __launch_bounds__(kBlock, kBlocksPerSM)
-    chain_kernel(const typename M::T* __restrict__ in,
-                 typename M::T* __restrict__ out, int hp, int pitch,
-                 const int* __restrict__ desc, int n_stages, int ry, int rx,
-                 const typename M::Luma luma) {
-  using T = typename M::T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int bh = kTileH + 2 * ry, bw = kTileW + 2 * rx;
-  T* cur = reinterpret_cast<T*>(smem);
-  T* nxt = cur + (bh + kRows - 1) * bw;
+// A stage body: HY, HX; Row, what a lane keeps of one input row, made by
+// row(x) from its view x[0 .. kSpanF + 2 HX) of the row (its own floats at
+// x[HX ..], HX on either side); out(ring, k, o), the lane's kSpanF outputs
+// from the 2 HY + 1 rows around the output row, row i from the top being
+// ring[(k + i) % K].
 
-  const size_t plane = static_cast<size_t>(hp) * pitch;
-  const size_t base = static_cast<size_t>(blockIdx.z) * (kGray ? 3 : 1) * plane;
-  const T* src = in + base;
-  T* dst = out + base;
-  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-
-  // Load the tile and its halo, through the point stages before the first
-  // windowed one: buffer (i, j) is padded pixel (y0 - ry + i, x0 - rx + j).
-  const int* d = desc;
-  int s = 0;
-  const int* run = d;
-  int n_run = skip_points(&d, &s, n_stages);
-  for (int i = warp; i < bh; i += kBlock / kWarp) {
-    const int gy = y0 - ry + i;
-    for (int j = lane; j < bw; j += kWarp) {
-      const int gx = x0 - rx + j;
-      T v = 0;
-      if (gy >= 0 && gy < hp && gx >= 0 && gx < pitch) {
-        const T* p = src + static_cast<size_t>(gy) * pitch + gx;
-        v = kGray ? M::gray(p[0], p[plane], p[2 * plane], luma) : p[0];
-      }
-      cur[i * bw + j] = apply_run<M>(v, run, n_run);
-    }
-  }
-
-  int ny = 0, nx = 0;  // margin of the region computed so far
-  while (s < n_stages) {
-    const int kind = __ldg(d), kh = __ldg(d + 1), kw = __ldg(d + 2);
-    const int shift = __ldg(d + 3);
-    const int* w = d + kHeader;
-    d = w + kh * kw;
-    ++s;
-    run = d;
-    n_run = skip_points(&d, &s, n_stages);
-    __syncthreads();  // the last stage's writes are in, its reads done
-    ny += kh / 2;
-    nx += kw / 2;
-    if (kind == kMin) {
-      MinOp<M> op;
+// A kh x kw correlation in the JAX stage's order (_conv_rank1_f32): for
+// each mask column kx the sum over ky, then those column sums over kx. Each
+// tap has its own weight, so the ring holds raw rows.
+template <int KH, int KW>
+struct DenseF {
+  static constexpr int HY = KH / 2, HX = KW / 2;
+  float w[KH * KW];
+  struct Row {
+    float f[kSpanF + 2 * HX];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpanF + 2 * HX]) const {
+    Row r;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) op.taps[k] = __ldg(w + k);
-      window_stage<M, 3, 3>(cur, nxt, bh, bw, ny, nx, op, run, n_run);
-    } else {
-      switch (kh * 8 + kw) {
-        case 3 * 8 + 3:
-          conv_stage<M, 3, 3>(cur, nxt, bh, bw, ny, nx, w, shift, run, n_run);
-          break;
-        case 5 * 8 + 5:
-          conv_stage<M, 5, 5>(cur, nxt, bh, bw, ny, nx, w, shift, run, n_run);
-          break;
-        case 1 * 8 + 3:
-          conv_stage<M, 1, 3>(cur, nxt, bh, bw, ny, nx, w, shift, run, n_run);
-          break;
-        case 3 * 8 + 1:
-          conv_stage<M, 3, 1>(cur, nxt, bh, bw, ny, nx, w, shift, run, n_run);
-          break;
-        case 1 * 8 + 5:
-          conv_stage<M, 1, 5>(cur, nxt, bh, bw, ny, nx, w, shift, run, n_run);
-          break;
-        default:  // 5 x 1; the host checked the descriptor
-          conv_stage<M, 5, 1>(cur, nxt, bh, bw, ny, nx, w, shift, run, n_run);
-          break;
-      }
-    }
-    T* t = cur;
-    cur = nxt;
-    nxt = t;
+    for (int c = 0; c < kSpanF + 2 * HX; ++c) r.f[c] = x[c];
+    return r;
   }
-  __syncthreads();
+  template <int K>
+  __device__ __forceinline__ void out(const Row (&r)[K], int k,
+                                      float (&o)[kSpanF]) const {
+#pragma unroll
+    for (int i = 0; i < kSpanF; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int kx = 0; kx < KW; ++kx) {
+        float col = fmul(r[k % K].f[i + kx], w[kx]);
+#pragma unroll
+        for (int ky = 1; ky < KH; ++ky)
+          col = fadd(col, fmul(r[(k + ky) % K].f[i + kx], w[ky * KW + kx]));
+        acc = kx == 0 ? col : fadd(acc, col);
+      }
+      o[i] = acc;
+    }
+  }
+};
 
-  // Store the tile: output (r, c) is buffer (ry + r, rx + c), 0 in the ring.
-  for (int r = warp; r < kTileH; r += kBlock / kWarp) {
-    const int gy = y0 + r;
-    if (gy >= hp) break;
-    for (int c = lane; c < kTileW; c += kWarp) {
-      const int gx = x0 + c;
-      if (gx >= pitch) break;
-      const bool ring =
-          gy < ry || gy >= hp - ry || gx < rx || gx >= pitch - rx;
-      const T v = ring ? T(0) : cur[(ry + r) * bw + rx + c];
-      const size_t o = static_cast<size_t>(gy) * pitch + gx;
-      dst[o] = v;
+// A 1xN stage and the Nx1 stage right after it (the chain's separated
+// convolutions) as one walk: the row pass, each product added in kx order,
+// makes the ring entry, and the column pass adds the entries' products in
+// ky order, the two stages' own orders with no shared-memory round trip
+// between them.
+template <int N>
+struct SepF {
+  static constexpr int HY = N / 2, HX = N / 2;
+  float v[N], u[N];  // the 1xN stage's weights, the Nx1 stage's
+  struct Row {
+    float p[kSpanF];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpanF + 2 * HX]) const {
+    Row r;
+#pragma unroll
+    for (int i = 0; i < kSpanF; ++i) {
+      float acc = fmul(x[i], v[0]);
+#pragma unroll
+      for (int kx = 1; kx < N; ++kx) acc = fadd(acc, fmul(x[i + kx], v[kx]));
+      r.p[i] = acc;
+    }
+    return r;
+  }
+  template <int K>
+  __device__ __forceinline__ void out(const Row (&r)[K], int k,
+                                      float (&o)[kSpanF]) const {
+#pragma unroll
+    for (int i = 0; i < kSpanF; ++i) {
+      float acc = fmul(r[k % K].p[i], u[0]);
+#pragma unroll
+      for (int ky = 1; ky < N; ++ky)
+        acc = fadd(acc, fmul(r[(k + ky) % K].p[i], u[ky]));
+      o[i] = acc;
+    }
+  }
+};
+
+// The 3x3 square min: the min of three floats of a row, then of three rows.
+struct MinSquareF {
+  static constexpr int HY = 1, HX = 1;
+  struct Row {
+    float m[kSpanF];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpanF + 2]) const {
+    Row r;
+#pragma unroll
+    for (int i = 0; i < kSpanF; ++i)
+      r.m[i] = fminf(fminf(x[i], x[i + 1]), x[i + 2]);
+    return r;
+  }
+  template <int K>
+  __device__ __forceinline__ void out(const Row (&r)[K], int k,
+                                      float (&o)[kSpanF]) const {
+#pragma unroll
+    for (int i = 0; i < kSpanF; ++i)
+      o[i] = fminf(fminf(r[k % K].m[i], r[(k + 1) % K].m[i]),
+                   r[(k + 2) % K].m[i]);
+  }
+};
+
+// The 3x3 cross: the centre row's horizontal min against the centre
+// column of the rows above and below.
+struct MinCrossF {
+  static constexpr int HY = 1, HX = 1;
+  struct Row {
+    float c[kSpanF], h[kSpanF];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpanF + 2]) const {
+    Row r;
+#pragma unroll
+    for (int i = 0; i < kSpanF; ++i) {
+      r.c[i] = x[i + 1];
+      r.h[i] = fminf(fminf(x[i], x[i + 1]), x[i + 2]);
+    }
+    return r;
+  }
+  template <int K>
+  __device__ __forceinline__ void out(const Row (&r)[K], int k,
+                                      float (&o)[kSpanF]) const {
+#pragma unroll
+    for (int i = 0; i < kSpanF; ++i)
+      o[i] = fminf(fminf(r[k % K].c[i], r[(k + 2) % K].c[i]),
+                   r[(k + 1) % K].h[i]);
+  }
+};
+
+// The lane's view of the tile row at p (its first float): one 16-byte
+// shared load a float4, the HX floats on either side from the adjacent
+// lanes by shuffle, the warp's edge lanes' from one 8-byte load each.
+// Every lane of the warp calls this.
+template <int HX>
+__device__ __forceinline__ void view(const float* p, int lane,
+                                     float (&x)[kSpanF + 2 * HX]) {
+#pragma unroll
+  for (int i = 0; i < kChainVecs; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    x[HX + 4 * i] = v.x;
+    x[HX + 4 * i + 1] = v.y;
+    x[HX + 4 * i + 2] = v.z;
+    x[HX + 4 * i + 3] = v.w;
+  }
+  if constexpr (HX > 0) {
+    float2 edge = make_float2(0.0f, 0.0f);
+    if (lane == 0)
+      edge = *reinterpret_cast<const float2*>(p - 2);
+    else if (lane == 31)
+      edge = *reinterpret_cast<const float2*>(p + kSpanF);
+    const float l1 = __shfl_up_sync(kFullWarp, x[HX + kSpanF - 1], 1);
+    const float r1 = __shfl_down_sync(kFullWarp, x[HX], 1);
+    x[HX - 1] = lane == 0 ? edge.y : l1;
+    x[HX + kSpanF] = lane == 31 ? edge.x : r1;
+    if constexpr (HX == 2) {
+      const float l2 = __shfl_up_sync(kFullWarp, x[kSpanF], 1);
+      const float r2 = __shfl_down_sync(kFullWarp, x[HX + 1], 1);
+      x[0] = lane == 0 ? edge.x : l2;
+      x[kSpanF + 3] = lane == 31 ? edge.y : r2;
+    }
+  }
+}
+
+// One windowed stage: rows [lo, hi) of dst from rows [lo - HY, hi + HY) of
+// src, every column of the tile, then post (kPost; none where the run after
+// the stage is the identity). A warp owns kSpanF * 32 columns and walks a
+// strip of the rows, each input row read once; the loop is unrolled by the
+// ring's length so that the ring stays in registers.
+template <bool kPost, class Body, class Sink>
+__device__ __forceinline__ void walk_f32(const Body& body,
+                                         const float* __restrict__ src,
+                                         const Sink& sink, int lo, int hi,
+                                         RunF32 post) {
+  constexpr int HY = Body::HY, HX = Body::HX, K = 2 * HY + 1;
+  constexpr int U = K > 1 ? K : 4;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int per = (hi - lo + kStrips - 1) / kStrips;
+  const int r0 = lo + warp / kChainGroups * per;
+  const int n = min(r0 + per, hi) - r0;  // rows of this warp's strip
+  if (n <= 0) return;
+  const int col = (warp % kChainGroups) * 32 + lane;  // the lane's span
+  src += 4 + col * kSpanF;
+  auto fetch = [&](int y) {
+    float x[kSpanF + 2 * HX];
+    view<HX>(src + y * kStrideF, lane, x);
+    return body.row(x);
+  };
+  auto put = [&](int y, float (&o)[kSpanF]) {
+    if (kPost) post(o);
+    sink(y, col, o);
+  };
+  typename Body::Row ring[K];
+#pragma unroll
+  for (int k = 0; k < K - 1; ++k) ring[k] = fetch(r0 - HY + k);
+  // Whole turns of the ring, then the rest: after a turn the ring is back
+  // in its first order, so the rest starts at k = 0.
+  int r = r0;
+  for (const int turns_end = r0 + n / U * U; r < turns_end;) {
+#pragma unroll
+    for (int k = 0; k < U; ++k, ++r) {
+      ring[(k + K - 1) % K] = fetch(r + HY);
+      float o[kSpanF];
+      body.template out<K>(ring, k % K, o);
+      put(r, o);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < U - 1; ++k, ++r) {
+    if (r >= r0 + n) return;
+    ring[(k + K - 1) % K] = fetch(r + HY);
+    float o[kSpanF];
+    body.template out<K>(ring, k % K, o);
+    put(r, o);
+  }
+}
+
+// Where a stage walk's outputs go: the other tile buffer,
+struct TileSink {
+  float* dst;
+  __device__ __forceinline__ void operator()(int y, int col,
+                                             const float (&o)[kSpanF]) const {
+    float4* q =
+        reinterpret_cast<float4*>(dst + y * kStrideF + 4 + col * kSpanF);
+#pragma unroll
+    for (int i = 0; i < kChainVecs; ++i)
+      q[i] = make_float4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+  }
+};
+
+// or, for the chain's last windowed stage, the output planes: tile row y
+// is padded row y0 - ry + y and tile column c float4 x0 + c; only the
+// tile's own float4 are stored, 0 in the outer (ry, rx) ring, to all three
+// planes for a Grayscale-first chain.
+template <bool kGray>
+struct PlaneSink {
+  float4* dst;    // the image's first output plane
+  size_t plane4;  // float4 of a plane
+  int hp, vecs, ry, rx, y0, x0;
+  __device__ __forceinline__ void operator()(int y, int col,
+                                             const float (&o)[kSpanF]) const {
+    const int gy = y0 - ry + y;
+    if (gy >= hp) return;
+    const bool ring = gy < ry || gy >= hp - ry;
+#pragma unroll
+    for (int i = 0; i < kChainVecs; ++i) {
+      const int c = col * kChainVecs + i, gx = x0 + c;
+      if (c < kHaloF4 || c >= kTileF4 - kHaloF4 || gx >= vecs) continue;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int x = 4 * gx + k;
+        v[k] = ring || x < rx || x >= 4 * vecs - rx ? 0.0f : o[4 * i + k];
+      }
+      float4* q = dst + static_cast<size_t>(gy) * vecs + gx;
+      const float4 w = make_float4(v[0], v[1], v[2], v[3]);
+      q[0] = w;
       if (kGray) {
-        dst[o + plane] = v;
-        dst[o + 2 * plane] = v;
+        q[plane4] = w;
+        q[2 * plane4] = w;
       }
     }
+  }
+};
+
+template <class Body, class Sink>
+__device__ __forceinline__ void stage_f32(const Body& body, const float* src,
+                                          const Sink& sink, int lo, int hi,
+                                          RunF32 post) {
+  if (post.identity())
+    walk_f32<false>(body, src, sink, lo, hi, post);
+  else
+    walk_f32<true>(body, src, sink, lo, hi, post);
+}
+
+// The windowed stage at payload (kind, kh x kw), or with sep the 1xN stage
+// there and the Nx1 stage at payload2, as one walk into sink.
+template <class Sink>
+__device__ __forceinline__ void windowed_f32(int kind, int kh, int kw,
+                                             bool sep, const int* payload,
+                                             const int* payload2,
+                                             const float* src,
+                                             const Sink& sink, int lo, int hi,
+                                             RunF32 run) {
+  auto dense = [&](auto body) {
+#pragma unroll
+    for (int k = 0; k < int(sizeof(body.w) / sizeof(float)); ++k)
+      body.w[k] = __int_as_float(__ldg(payload + k));
+    stage_f32(body, src, sink, lo, hi, run);
+  };
+  auto separated = [&](auto body) {
+#pragma unroll
+    for (int k = 0; k < int(sizeof(body.v) / sizeof(float)); ++k) {
+      body.v[k] = __int_as_float(__ldg(payload + k));
+      body.u[k] = __int_as_float(__ldg(payload2 + k));
+    }
+    stage_f32(body, src, sink, lo, hi, run);
+  };
+  if (sep) {
+    if (kw == 3)
+      separated(SepF<3>{});
+    else
+      separated(SepF<5>{});
+  } else if (kind == kMin) {
+    if (__ldg(payload) == 0)  // a corner tap: the cross
+      stage_f32(MinCrossF{}, src, sink, lo, hi, run);
+    else
+      stage_f32(MinSquareF{}, src, sink, lo, hi, run);
+  } else {
+    switch (kh * 8 + kw) {
+      case 3 * 8 + 3: dense(DenseF<3, 3>{}); break;
+      case 5 * 8 + 5: dense(DenseF<5, 5>{}); break;
+      case 1 * 8 + 3: dense(DenseF<1, 3>{}); break;
+      case 3 * 8 + 1: dense(DenseF<3, 1>{}); break;
+      case 1 * 8 + 5: dense(DenseF<1, 5>{}); break;
+      default: dense(DenseF<5, 1>{}); break;  // 5 x 1; the host checked
+    }
+  }
+}
+
+// A tile of the (count, C, hp, pitch) buffer: image (or plane) z, output
+// rows from y0, float4 from x0 (halo included, kHaloF4 left of its own).
+struct TileF {
+  int z, y0, x0;
+};
+
+__device__ __forceinline__ TileF tile_at(int t, int tiles_x, int tiles_y) {
+  const int per = tiles_x * tiles_y, z = t / per, r = t - z * per;
+  return {z, r / tiles_x * kChainRows,
+          r % tiles_x * (kTileF4 - 2 * kHaloF4) - kHaloF4};
+}
+
+// Load a tile and its halo into buf, through the point run pre: buffer
+// (i, c) is float4 x0 + c of padded row y0 - ry + i, 0 outside the
+// buffer; for a Grayscale-first chain the luma of the three planes.
+template <bool kGray>
+__device__ __forceinline__ void load_tile(const float4* __restrict__ src,
+                                          float* buf, const TileF& tile,
+                                          int hp, int vecs, size_t plane4,
+                                          int bh, int ry, RunF32 pre,
+                                          const F32Luma& luma) {
+  const int n_vecs = bh * kTileF4;
+  for (int i0 = threadIdx.x; i0 < n_vecs;
+       i0 += kChainLoadBatch * kChainThreads) {
+    float4 v[kChainLoadBatch];
+#pragma unroll
+    for (int b = 0; b < kChainLoadBatch; ++b) {
+      const int i = i0 + b * kChainThreads;
+      const int gy = tile.y0 - ry + i / kTileF4, gx = tile.x0 + i % kTileF4;
+      v[b] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i >= n_vecs || gy < 0 || gy >= hp || gx < 0 || gx >= vecs) continue;
+      const float4* p = src + static_cast<size_t>(gy) * vecs + gx;
+      v[b] = p[0];
+      if (kGray) {
+        const float4 g = p[plane4], bl = p[2 * plane4];
+        v[b] = make_float4(luma_of(v[b].x, g.x, bl.x, luma),
+                           luma_of(v[b].y, g.y, bl.y, luma),
+                           luma_of(v[b].z, g.z, bl.z, luma),
+                           luma_of(v[b].w, g.w, bl.w, luma));
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kChainLoadBatch; ++b) {
+      const int i = i0 + b * kChainThreads;
+      if (i >= n_vecs) break;
+      float w[4] = {v[b].x, v[b].y, v[b].z, v[b].w};
+      pre(w);
+      *reinterpret_cast<float4*>(buf + i / kTileF4 * kStrideF + 4 +
+                                 4 * (i % kTileF4)) =
+          make_float4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// Start copying a tile into buf without the registers (cp.async, 16 bytes
+// a copy, 0 outside the buffer); the caller waits, then applies the point
+// run before the first windowed stage. A thread copies the float4 that
+// load_tile would give it.
+__device__ __forceinline__ void prefetch_tile(const float4* __restrict__ src,
+                                              float* buf, const TileF& tile,
+                                              int hp, int vecs, int bh,
+                                              int ry) {
+  const int n_vecs = bh * kTileF4;
+  for (int i = threadIdx.x; i < n_vecs; i += kChainThreads) {
+    const int gy = tile.y0 - ry + i / kTileF4, gx = tile.x0 + i % kTileF4;
+    const bool in = gy >= 0 && gy < hp && gx >= 0 && gx < vecs;
+    __pipeline_memcpy_async(
+        buf + i / kTileF4 * kStrideF + 4 + 4 * (i % kTileF4),
+        in ? src + static_cast<size_t>(gy) * vecs + gx : src, 16,
+        in ? 0 : 16);
+  }
+  __pipeline_commit();
+}
+
+// in and out are (count * (kGray ? 3 : 1), hp, pitch) floats, pitch a
+// multiple of 4, cut into n_tiles tiles (tiles_x across, tiles_y down,
+// then count); a block takes tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// of kChainThreads threads; dynamic shared memory holds two
+// (kChainRows + 2 ry) x kStrideF float buffers. The last windowed stage
+// writes the output planes itself, so the other buffer is free while it
+// runs and, but for a Grayscale-first chain, takes the block's next tile,
+// copied in the background.
+template <bool kGray>
+__global__ void __launch_bounds__(kChainThreads, kChainBlocksPerSM)
+    chain_f32(const float* __restrict__ in, float* __restrict__ out, int hp,
+              int pitch, const int* __restrict__ desc, int n_stages, int ry,
+              int rx, const F32Luma luma, int tiles_x, int tiles_y,
+              int n_tiles) {
+  extern __shared__ float4 smem_f4[];
+  const int bh = kChainRows + 2 * ry;
+  float* cur = reinterpret_cast<float*>(smem_f4);
+  float* nxt = cur + bh * kStrideF;
+  const size_t plane4 = static_cast<size_t>(hp) * pitch / 4;
+  const size_t image4 = (kGray ? 3 : 1) * plane4;
+  const float4* src = reinterpret_cast<const float4*>(in);
+  const int vecs = pitch / 4;  // float4 of a row
+  // The point stages before the first windowed one.
+  const int* d0 = desc;
+  int s0 = 0;
+  const RunF32 pre = fold_points_f32(&d0, &s0, n_stages);
+  bool ready = false;  // cur holds the tile, copied in the background
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const TileF tile = tile_at(t, tiles_x, tiles_y);
+    if (ready) {
+      ready = false;
+      __pipeline_wait_prior(0);
+      if (!pre.identity()) {  // the float4 this thread copied
+        for (int i = threadIdx.x; i < bh * kTileF4; i += kChainThreads) {
+          float4* q = reinterpret_cast<float4*>(cur + i / kTileF4 * kStrideF +
+                                                4 + 4 * (i % kTileF4));
+          float w[4] = {q->x, q->y, q->z, q->w};
+          pre(w);
+          *q = make_float4(w[0], w[1], w[2], w[3]);
+        }
+      }
+    } else {
+      load_tile<kGray>(src + tile.z * image4, cur, tile, hp, vecs, plane4,
+                       bh, ry, pre, luma);
+    }
+    const PlaneSink<kGray> planes{
+        reinterpret_cast<float4*>(out) + tile.z * image4, plane4, hp, vecs,
+        ry, rx, tile.y0, tile.x0};
+    const int* d = d0;
+    int s = s0;
+    int ny = 0;  // margin of the rows computed so far
+    bool stored = false;
+    while (s < n_stages) {
+      const int kind = __ldg(d), kh = __ldg(d + 1), kw = __ldg(d + 2);
+      const int* payload = d + kHeader;
+      d = payload + kh * kw;
+      ++s;
+      RunF32 run = fold_points_f32(&d, &s, n_stages);
+      // A 1xN conv stage right before an Nx1 one runs with it as one stage.
+      const int* payload2 = d + kHeader;
+      const bool sep = kind == kConv && kh == 1 && run.identity() &&
+                       s < n_stages && __ldg(d) == kConv &&
+                       __ldg(d + 1) == kw && __ldg(d + 2) == 1;
+      if (sep) {
+        d = payload2 + kw;
+        ++s;
+        run = fold_points_f32(&d, &s, n_stages);
+      }
+      __syncthreads();  // the last stage's writes are in, its reads done
+      ny += sep ? kw / 2 : kh / 2;
+      if (s < n_stages) {
+        windowed_f32(kind, kh, kw, sep, payload, payload2, cur,
+                     TileSink{nxt}, ny, bh - ny, run);
+        float* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+        continue;
+      }
+      // The last windowed stage: nxt is free, so the next tile's copy runs
+      // beside it.
+      const int tn = t + gridDim.x;
+      ready = !kGray && tn < n_tiles;
+      if (ready) {
+        const TileF next = tile_at(tn, tiles_x, tiles_y);
+        prefetch_tile(src + next.z * image4, nxt, next, hp, vecs, bh, ry);
+      }
+      windowed_f32(kind, kh, kw, sep, payload, payload2, cur, planes, ny,
+                   bh - ny, run);
+      stored = true;
+    }
+    if (!stored) {  // no windowed stage: store the loaded tile
+      __syncthreads();
+      constexpr int kSpans = kTileF4 / kChainVecs;  // lane spans a row
+      for (int i = threadIdx.x; i < kChainRows * kSpans; i += kChainThreads) {
+        const int r = i / kSpans, c = i % kSpans;
+        const float* p = cur + (ry + r) * kStrideF + 4 + c * kSpanF;
+        float o[kSpanF];
+#pragma unroll
+        for (int k = 0; k < kSpanF; ++k) o[k] = p[k];
+        planes(ry + r, c, o);
+      }
+    }
+    if (ready) {
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    __syncthreads();  // this tile's reads are done before the next's writes
   }
 }
 
@@ -898,7 +1275,7 @@ bool factors_fit(const int* uv, int kh, int kw, int shift) {
          255 * su * sv + half_of(shift) < (1L << 16);
 }
 
-// A uint8 min stage: the 3x3 square or cross, the two bodies chain_u8 has.
+// A min stage: the 3x3 square or cross, the two bodies each kernel has.
 bool min_taps_fit(const int* t) {
   for (int k = 0; k < 9; ++k) {
     const bool corner = k % 2 == 0 && k != 4;
@@ -909,9 +1286,9 @@ bool min_taps_fit(const int* t) {
 }
 
 // Check the host copy of the descriptor: only kinds and shapes the kernel
-// has, words that add up, radii within kMaxRadius; with factors (uint8), a
-// conv stage's payload is its rank-1 factors and a min's taps the square or
-// the cross. Sets the stage count and the chain's radii. No stage at all is
+// has, words that add up, radii within kMaxRadius, a min's taps the square
+// or the cross; with factors (uint8), a conv stage's payload is its rank-1
+// factors. Sets the stage count and the chain's radii. No stage at all is
 // a Grayscale-only chain.
 bool parse(const int* desc, int n_words, bool factors, int* n_stages, int* ry,
            int* rx) {
@@ -926,7 +1303,7 @@ bool parse(const int* desc, int n_words, bool factors, int* n_stages, int* ry,
       ok = kh == 1 && kw == 1;
     else if (kind == kMin)
       ok = kh == 3 && kw == 3 && i + kHeader + 9 <= n_words &&
-           (!factors || min_taps_fit(desc + i + kHeader));
+           min_taps_fit(desc + i + kHeader);
     else if (kind == kConv)
       ok = conv_shape(kh, kw) && shift >= 0 && shift < 31 &&
            i + kHeader + words <= n_words &&
@@ -975,24 +1352,39 @@ int launch_chain_u8(const void* in, void* out, int count, int hp, int pitch,
 
 int launch_chain_f32(const void* in, void* out, int count, int hp, int pitch,
                      int gray, const void* desc, const int* desc_host,
-                     int n_words, const F32::Luma& luma, void* stream) {
+                     int n_words, const F32Luma& luma, void* stream) {
   int n_stages, ry, rx;
-  if (count < 1 || count > 65535 || hp < 1 || pitch < 1 || n_words < 0 ||
-      (n_words > 0 && desc_host == nullptr) ||
+  if (count < 1 || count > 65535 || hp < 1 || pitch < 4 || pitch % 4 ||
+      n_words < 0 || (n_words > 0 && desc_host == nullptr) ||
       !parse(desc_host, n_words, false, &n_stages, &ry, &rx) ||
       (n_stages == 0 && !gray))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * static_cast<size_t>(kTileH + 2 * ry + kRows - 1) *
-                      (kTileW + 2 * rx) * sizeof(float);
   void (*kernel)(const float*, float*, int, int, const int*, int, int, int,
-                 F32::Luma) = chain_kernel<F32, false>;
-  if (gray) kernel = chain_kernel<F32, true>;
+                 const F32Luma, int, int, int) =
+      gray ? chain_f32<true> : chain_f32<false>;
+  const size_t smem =
+      2 * static_cast<size_t>(kChainRows + 2 * ry) * kStrideF * sizeof(float);
   if (const int e = allow_smem(kernel, smem)) return e;
-  const dim3 grid((pitch + kTileW - 1) / kTileW, (hp + kTileH - 1) / kTileH,
-                  count);
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+  // One block for each resident slot of the card, each taking every
+  // grid-th tile.
+  int device, sms, per_sm;
+  if (const cudaError_t e = cudaGetDevice(&device)) return static_cast<int>(e);
+  if (const cudaError_t e = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, device))
+    return static_cast<int>(e);
+  if (const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kChainThreads, smem))
+    return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int per_tile = 4 * (kTileF4 - 2 * kHaloF4);
+  const int tiles_x = (pitch + per_tile - 1) / per_tile;
+  const int tiles_y = (hp + kChainRows - 1) / kChainRows;
+  const int n_tiles = tiles_x * tiles_y * count;
+  const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  kernel<<<grid, kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
-      static_cast<const int*>(desc), n_stages, ry, rx, luma);
+      static_cast<const int*>(desc), n_stages, ry, rx, luma, tiles_x, tiles_y,
+      n_tiles);
   return dip::launch_status();
 }
 
@@ -1017,5 +1409,5 @@ DIP_API int dip_chain_f32(const void* in, void* out, int count, int hp,
                           const int* desc_host, int n_words, float wr,
                           float wg, float wb, void* stream) {
   return launch_chain_f32(in, out, count, hp, pitch, gray, desc, desc_host,
-                          n_words, F32::Luma{wr, wg, wb}, stream);
+                          n_words, F32Luma{wr, wg, wb}, stream);
 }

@@ -360,6 +360,44 @@ def test_uint8_descriptor_refuses_a_mask_without_factors(mask, shift):
     assert chain._encode([stage], True).size == 4 + mask.size
 
 
+def test_float32_point_runs_fold_exactly():
+    # chain_f32 folds a run of point stages (RunF32) into inv inversions
+    # applied one by one, then the threshold xor the parity of the
+    # inversions after it: the same floats as the stages one after another,
+    # since after a threshold every value is 0 or 1.
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.random(4000, dtype=np.float32),
+                        rng.normal(0.5, 3, 4000).astype(np.float32),
+                        np.float32(0.5) + np.float32(2.0) ** -np.arange(
+                            1, 30, dtype=np.float32),
+                        np.array([0, 0.5, 1, -0.0], np.float32)])
+    one = np.float32(1)
+    for _ in range(300):
+        run = rng.choice(["copy", "invert", "threshold"],
+                         int(rng.integers(1, 7)))
+        want = x.copy()
+        for kind in run:
+            if kind == "invert":
+                want = one - want
+            elif kind == "threshold":
+                want = (want > 0.5).astype(np.float32)
+        inv, threshold, flip = 0, False, False
+        for kind in run:
+            if kind == "invert":
+                if threshold:
+                    flip = not flip
+                else:
+                    inv += 1
+            elif kind == "threshold":
+                threshold = True
+        got = x.copy()
+        for _ in range(inv):
+            got = one - got
+        if threshold:
+            got = ((got > 0.5) != flip).astype(np.float32)
+        np.testing.assert_array_equal(got, want, err_msg=str(run))
+
+
 def test_kernel_constants_equal_the_port():
     # chain.cu compiles these numbers in; hold each line to its source.
     with open(os.path.join(CSRC, "chain.cu")) as f:
@@ -574,7 +612,44 @@ def test_random_stage_lists_match_plain_on_card():
         planar = torch.from_numpy(rng.integers(0, 256, shape,
                                                np.uint8)).cuda()
         for stages in chip_smoke.random_chain_stages(rng, 12):
-            got = chip_smoke.stages_u8(stages, planar)
+            got = chip_smoke.chain_stages(stages, planar)
+            torch.cuda.synchronize()
+            assert torch.equal(got, chip_smoke.stages_plain(stages, planar))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["C1", "C2", "C3", "C4", "G"])
+def test_float32_kernel_matches_plain_on_card_at_edges(name):
+    # chip_smoke.py phase 3i: chain_f32 at chain_u8's edge shapes, as
+    # float32 planars, one image and B=2.
+    card()
+    import chip_smoke
+    cols = chip_smoke.CHECKED_CHAINS[name]
+    rng = np.random.default_rng(100 + len(cols))
+    for label, planar in chip_smoke.chain_edge_inputs(rng, cols):
+        shape = tuple(planar.shape)
+        planar = (torch.from_numpy(rng.random(shape, dtype=np.float32))
+                  if label.startswith("raw") else planar.float() / 255)
+        planar = planar.cuda()
+        stack = torch.stack([planar, planar.flip(-1).contiguous()])
+        for p, b in ((planar, 0), (stack, 2)):
+            got = chip_smoke.raw_chain(shape, cols, b, "float32")(p)
+            torch.cuda.synchronize()
+            assert torch.equal(got, chain.fused_chain_plain(
+                p, cols, "float32")), f"{name} on {label}, batch {b}"
+
+
+@pytest.mark.cuda
+def test_random_float32_stage_lists_match_plain_on_card():
+    # chip_smoke.py phase 3i: masks of 10-bit ints of either sign over
+    # 2^10, separated pairs, min and point stages, on raw buffers.
+    card()
+    import chip_smoke
+    rng = np.random.default_rng(13)
+    for shape in chip_smoke.CHAIN_EDGE_BUFFERS:
+        planar = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
+        for stages in chip_smoke.random_chain_stages(rng, 12, float32=True):
+            got = chip_smoke.chain_stages(stages, planar)
             torch.cuda.synchronize()
             assert torch.equal(got, chip_smoke.stages_plain(stages, planar))
 

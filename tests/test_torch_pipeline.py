@@ -143,6 +143,47 @@ def test_kernel_constants_equal_the_spec():
     assert consts["kThresholdMax"] == spec.THRESHOLD_MAX
     assert consts["kRing"] == pipeline.RING
     assert consts["kTileW"] % 4 == 0
+    assert consts["kTileW"] == 128 * consts["kPipeWords"]
+
+
+def _luma_split():
+    """The luma weights as pipeline.cu splits them: (hi, lo) with weight =
+    256 hi + lo, both below 256."""
+    return [(w >> 8, w & 255) for w in spec.GRAYSCALE_WEIGHTS_INT_RGB]
+
+
+def test_kernel_threshold_on_fields_is_the_spec_threshold():
+    # pipeline.cu tests luma > 127 as bit 15 of H + (L >> 8), H and L the
+    # weight halves' dot products with the pixel; every pixel of R, G on
+    # four B levels, and every B on four R, G levels.
+    (hr, lr), (hg, lg), (hb, lb) = _luma_split()
+    v = np.arange(256)
+    for r, g, b in ((v[:, None, None], v[None, :, None],
+                     np.array([0, 1, 128, 255])[None, None, :]),
+                    (np.array([0, 1, 128, 255])[:, None, None],
+                     np.array([0, 77, 200, 255])[None, :, None],
+                     v[None, None, :])):
+        h = hr * r + hg * g + hb * b
+        lo = lr * r + lg * g + lb * b
+        assert h.max() < 1 << 16 and lo.max() < 1 << 16  # a field each
+        t = h + (lo >> 8)
+        assert t.max() < 1 << 16
+        luma = (spec.GRAYSCALE_WEIGHTS_INT_RGB[0] * r
+                + spec.GRAYSCALE_WEIGHTS_INT_RGB[1] * g
+                + spec.GRAYSCALE_WEIGHTS_INT_RGB[2] * b) >> spec.GRAYSCALE_SHIFT
+        np.testing.assert_array_equal((t >> 15) & 1,
+                                      luma > spec.THRESHOLD_VALUE)
+
+
+def test_kernel_blur_map_is_the_rounded_blur():
+    # pipeline.cu maps the 1-2-1 x 1-2-1 count k of eroded bytes (each
+    # THRESHOLD_MAX or 0) to 16 k, less 1 for k >= 9, four bytes a word.
+    k = np.arange(17, dtype=np.uint32)
+    words = k * 0x01010101
+    f = ((words + 0x07070707) >> 4) & 0x01010101
+    got = ((words - f) << 4) | (f * 0x0F)
+    want = (spec.THRESHOLD_MAX * k + 8) >> 4
+    np.testing.assert_array_equal(got, want * 0x01010101)
 
 
 def test_cpu_pipeline_launches_no_kernel():
@@ -206,3 +247,14 @@ def test_batched_kernel_matches_plain_on_card(hw):
     for b in range(3):
         np.testing.assert_array_equal(crops[b],
                                       oracle.fused_pipeline(images[b]))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card_at_edges():
+    # chip_smoke.py phase 3j: rows that end at or past a lane's words or a
+    # warp's span, heights not a multiple of the strip, raw buffers; alone
+    # and on stacks of 1, 2 and 3.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import chip_smoke
+    assert chip_smoke.compare_pipeline_edges(np.random.default_rng(15)) == 0
