@@ -27,10 +27,11 @@ csrc`` with nvcc, then, with no fallback anywhere:
    against the chain's sequential oracle, and C2's uint8 crop against
    ``pipeline_u8``'s, the same function;
    [3d] the morphology library surface (``MORPHOLOGY``: dilation by the
-   3x3 square, cross and 5x5 diamond, erosion by the diamond in both
-   models), driven once at full size with the counts zeroed and checked
-   against the oracle, then each kernel equal to its plain version at
-   3504x2336 and 37x53;
+   3x3 square, cross and 5x5 diamond, erosion by the diamond and the 5x5
+   square in both models, and by the 17x17 square (radius 8, on a pad=8
+   layout) in both models, dilation by it in uint8), driven once at full
+   size with the counts zeroed and checked against the oracle, then each
+   kernel equal to its plain version at 3504x2336 and 37x53;
    [3e] every body of the uint8 window kernels, random convolution masks
    among them (rank 1, not rank 1, negative, clamping, a sum that carries
    across 16-bit fields; each held to its route, ``ConvRank1`` or
@@ -45,14 +46,19 @@ csrc`` with nvcc, then, with no fallback anywhere:
    ``CHAIN_EDGE_BUFFERS``, and 12 stage lists no column name makes
    (``random_chain_stages``: rank-1 masks that clamp, shifts above 8);
    [3h] every body of ``window_f32_strip`` (the float32 convolutions and
-   blur), random float masks among them, the same way at ``EDGE_IMAGES``
-   and ``EDGE_BUFFERS``;
+   blur), random float masks among them, and the float32 ``Taps`` kernel on
+   the elements of ``MORPHOLOGY``, the same way at ``EDGE_IMAGES`` and
+   ``EDGE_BUFFERS``;
    [3i] ``chain_f32`` the way [3g] holds ``chain_u8``, at the same shapes
    as float32 planars, and on 12 random float32 stage lists (masks of
    10-bit ints of either sign over 2^10, separated pairs, min and point
    stages);
    [3j] ``pipeline_u8`` at ``EDGE_IMAGES`` and at ``EDGE_BUFFERS``' heights
    and pitches (three planes), alone and on stacks of 1, 2 and 3;
+   [3k] the ``Taps`` kernels (uint8 min and max, float32 min) on 12 seeded
+   random elements of radius 1..8 (``random_element``: sparse and dense,
+   empty rows, rows of several runs, off-centre) at
+   ``RANDOM_ELEMENT_IMAGES``, whole buffer, tolerance 0;
 4. drives the port's CLI once at full size (``--rounds 50 --verify
    --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
    requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
@@ -83,7 +89,7 @@ csrc`` with nvcc, then, with no fallback anywhere:
    the summed device times of the port's unfused kernels for the same ops
    (from phases 6 and 6f) as its yardstick (no single PyTorch call
    computes a chain), and for the morphology kernels;
-7. prints ``{"kernels": [...]}`` (41 entries, each with its ``dtype``),
+7. prints ``{"kernels": [...]}`` (46 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -259,10 +265,16 @@ CHAIN_KERNELS = {
 }
 DIAMOND_5X5 = np.array([[0, 0, 1, 0, 0], [0, 1, 1, 1, 0], [1, 1, 1, 1, 1],
                         [0, 1, 1, 1, 0], [0, 0, 1, 0, 0]], bool)
+SQUARE_5X5 = np.ones((5, 5), bool)
+SQUARE_17X17 = np.ones((17, 17), bool)   # radius 8: a pad=8 layout
 # The morphology library surface: (label, data model, make_* function,
 # structuring element, kernel, file:line and name of the TPU kernel it
-# replaces).
+# replaces). Each runs on a layout whose halo is the element's radius (at
+# least the default 2).
 _W = "ops/pallas/window.py:"
+_GENERIC_U8 = (_W + "326", "body_generic of _make_morphology")
+_GENERIC_MAX = (_W + "353", "make_dilation (body_generic :326)")
+_GENERIC_F32 = ("ops/pallas/f32.py:104", "body_generic of _make_erosion")
 MORPHOLOGY = [
     ("Dilation-3x3-Square", "uint8", window.make_dilation,
      spec.SQUARE_MASK_3X3, "window_u8<MaxRect>", _W + "353",
@@ -271,13 +283,26 @@ MORPHOLOGY = [
      spec.CROSS_MASK_3X3, "window_u8<MaxPlus>", _W + "353",
      "make_dilation (body_plus :313)"),
     ("Dilation-5x5-Diamond", "uint8", window.make_dilation, DIAMOND_5X5,
-     "window_u8<Taps<Max>>", _W + "353", "make_dilation (body_generic :326)"),
+     "window_u8<Taps<Max>>", *_GENERIC_MAX),
     ("Erosion-5x5-Diamond", "uint8", window.make_erosion, DIAMOND_5X5,
-     "window_u8<Taps<Min>>", _W + "326", "body_generic of _make_morphology"),
+     "window_u8<Taps<Min>>", *_GENERIC_U8),
     ("Erosion-5x5-Diamond", "float32", f32.make_erosion, DIAMOND_5X5,
-     "window_f32<Taps<Min>>", "ops/pallas/f32.py:104",
-     "body_generic of _make_erosion"),
+     "window_f32<Taps<Min>>", *_GENERIC_F32),
+    ("Erosion-5x5-Square", "uint8", window.make_erosion, SQUARE_5X5,
+     "window_u8<Taps<Min>>", *_GENERIC_U8),
+    ("Erosion-5x5-Square", "float32", f32.make_erosion, SQUARE_5X5,
+     "window_f32<Taps<Min>>", *_GENERIC_F32),
+    ("Erosion-17x17-Square", "uint8", window.make_erosion, SQUARE_17X17,
+     "window_u8<Taps<Min>>", *_GENERIC_U8),
+    ("Dilation-17x17-Square", "uint8", window.make_dilation, SQUARE_17X17,
+     "window_u8<Taps<Max>>", *_GENERIC_MAX),
+    ("Erosion-17x17-Square", "float32", f32.make_erosion, SQUARE_17X17,
+     "window_f32<Taps<Min>>", *_GENERIC_F32),
 ]
+# Phase 3k: seeded random elements of radius 1..8 (sparse and dense, with
+# empty rows, rows of several runs, off-centre) at these image sizes.
+RANDOM_ELEMENTS = 12
+RANDOM_ELEMENT_IMAGES = ((9, 9), (37, 53), (70, 150), (133, 301))
 
 # The one PyTorch call that computes an op's whole-buffer function, where
 # there is one: the yardstick, timed here and used nowhere in the port.
@@ -593,8 +618,13 @@ def compare_chains(model: Model, sizes, variants, label) -> dict:
     return errs
 
 
-def morphology_input(model: Model, img):
-    layout = make_layout(*img.shape[:2])
+def element_pad(mask) -> int:
+    """The halo a layout needs for ``mask``: its radius, at least 2."""
+    return max(2, mask.shape[0] // 2, mask.shape[1] // 2)
+
+
+def morphology_input(model: Model, img, pad: int = 2):
+    layout = make_layout(*img.shape[:2], pad=pad)
     return layout, model.bake(img, layout).cuda()
 
 
@@ -611,16 +641,19 @@ def drive_morphology(models: dict, img) -> dict:
     it: each make_* function's op once, with the counts zeroed; each crop
     against the oracle. ``models`` maps each dtype to its ``Model``.
     Returns that run's launch counts."""
-    inputs = {d: morphology_input(m, img) for d, m in models.items()}
+    inputs = {(d, element_pad(mask)): None for _, d, _, mask, *_ in
+              MORPHOLOGY}
+    for d, pad in inputs:
+        inputs[d, pad] = morphology_input(models[d], img, pad)
     kernels.reset_launches()
     outs = []
     for label, dtype, make, mask, *_ in MORPHOLOGY:
-        layout, planar = inputs[dtype]
+        layout, planar = inputs[dtype, element_pad(mask)]
         outs.append(make(layout, window.mask_to_taps(mask))(planar))
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     for (label, dtype, _, mask, name, *_), out in zip(MORPHOLOGY, outs):
-        layout, _ = inputs[dtype]
+        layout, _ = inputs[dtype, element_pad(mask)]
         off = oracle_delta(models[dtype].crop(out, layout),
                            morphology_oracle(label, dtype, img, mask))
         check(off == 0, f"{dtype} {label}: {off} levels from the oracle")
@@ -636,7 +669,8 @@ def compare_morphology(models: dict, sizes) -> list[float]:
     errs = [0.0] * len(MORPHOLOGY)
     for size_label, img in sizes:
         for i, (label, dtype, make, mask, *_) in enumerate(MORPHOLOGY):
-            layout, planar = morphology_input(models[dtype], img)
+            layout, planar = morphology_input(models[dtype], img,
+                                              element_pad(mask))
             taps = window.mask_to_taps(mask)
             got = make(layout, taps)(planar)
             reduce = (torch.maximum if label.startswith("Dilation")
@@ -648,6 +682,54 @@ def compare_morphology(models: dict, sizes) -> list[float]:
                   f"{size_label}: kernel differs from its plain version")
         print(f"  {size_label}: {len(MORPHOLOGY)} morphology kernels equal "
               f"to their plain versions")
+    return errs
+
+
+def random_element(rng, r: int) -> tuple:
+    """Seeded random taps within radius ``r``: sparse or dense, some with
+    an empty row, some off-centre (a band of empty columns), some rows of
+    several runs."""
+    mask = rng.random((2 * r + 1, 2 * r + 1)) < rng.choice([0.2, 0.5, 0.9])
+    if rng.random() < 0.5:
+        mask[rng.integers(0, 2 * r + 1)] = False
+    if rng.random() < 0.3:
+        mask[:, :rng.integers(1, r + 1)] = False
+    mask[r, r] = mask[r, r] or not mask.any()
+    return window.mask_to_taps(mask)
+
+
+def compare_random_elements(rng) -> dict:
+    """The Taps kernels (uint8 min and max, float32 min) on RANDOM_ELEMENTS
+    seeded random elements, each at every size of RANDOM_ELEMENT_IMAGES on
+    a layout of its radius, against morphology_plain on the whole buffer,
+    tolerance 0, driven through the make_* functions; returns the largest
+    |kernel - plain| per kernel name."""
+    errs = {}
+    for k in range(RANDOM_ELEMENTS):
+        taps = random_element(rng, 1 + k % 8)
+        radius = max(max(abs(dy), abs(dx)) for dy, dx in taps)
+        pad = max(2, radius)
+        for h, w in RANDOM_ELEMENT_IMAGES:
+            layout = make_layout(h, w, pad=pad)
+            img = rng.integers(0, 256, (h, w, 3), np.uint8)
+            for make, bake, reduce in (
+                    (window.make_erosion, to_planar_padded, torch.minimum),
+                    (window.make_dilation, to_planar_padded, torch.maximum),
+                    (f32.make_erosion, to_planar_padded_f32,
+                     torch.minimum)):
+                op = make(layout, taps)
+                planar = bake(img, layout).cuda()
+                got = op(planar)
+                want = window.morphology_plain(planar, taps, reduce)
+                torch.cuda.synchronize()
+                err = max_delta(got, want)
+                errs[op.kernel] = max(errs.get(op.kernel, 0.0), err)
+                check(torch.equal(got, want), f"{op.kernel} on element "
+                      f"{k} {sorted(taps)} at {h}x{w}: kernel differs from "
+                      f"its plain version (max |delta| {err})")
+        print(f"  element {k}: radius {radius}, "
+              f"{len(taps)} taps, {len(RANDOM_ELEMENT_IMAGES)} sizes x 3 "
+              f"kernels equal to their plain versions")
     return errs
 
 
@@ -946,9 +1028,19 @@ def f32_edge_bodies(rng) -> list:
     """(label, kernel name, op on a float32 planar tensor, its plain
     version) for every body of window_f32_strip: the matrix's masks and
     random ones (ints of up to 10 bits over 2^10, so that most products
-    round), ``ConvSep`` with random row and column masks."""
+    round), ``ConvSep`` with random row and column masks; and the float32
+    ``Taps`` kernel on the elements of ``MORPHOLOGY``."""
     out = [("Blur3x3", "window_f32<Blur3x3>", f32.gaussian_blur_3x3,
             f32.blur3x3_plain)]
+    for label, _, _, mask, name, *_ in MORPHOLOGY:
+        if name.startswith("window_f32<Taps"):
+            taps = window.mask_to_taps(mask)
+            _, entry, extra = window.morphology_launch(taps, "min",
+                                                       "float32")
+            out.append((label, name, lambda p, n=name, e=entry, x=extra:
+                        window._launch_window(n, e, p, *x),
+                        lambda p, t=taps: window.morphology_plain(
+                            p, t, torch.minimum)))
     for n, mask, shift in ((3, spec.BLUR_3X3_INT, spec.BLUR_3X3_SHIFT),
                            (5, spec.BLUR_5X5_INT, spec.BLUR_5X5_SHIFT)):
         for m, s in ((mask, shift),
@@ -1249,13 +1341,17 @@ def time_morphology(models: dict, img, errs: list,
     entries = []
     for (label, dtype, make, mask, name, where, tpu_name), err in zip(
             MORPHOLOGY, errs):
-        layout, planar = morphology_input(models[dtype], img)
+        layout, planar = morphology_input(models[dtype], img,
+                                          element_pad(mask))
         taps = window.mask_to_taps(mask)
         reduce = (torch.maximum if label.startswith("Dilation")
                   else torch.minimum)
         ms, plain_ms = timed([make(layout, taps), lambda p: (
             window.morphology_plain(p, taps, reduce))], planar)
-        n = 3 * len(taps)
+        # Operations a position: for Taps the min or max operations its
+        # program does (TapsProgram.stats), else three a tap.
+        n = (window.taps_program(taps, window.TAPS_TILE_ROWS[dtype])
+             .stats()["ops"] if "Taps" in name else 3 * len(taps))
         bound_ms, bound_by = bound_for(n if dtype == "float32" else (0, n),
                                        planar)
         print(f"    {label:24s} {name:28s} kernel {ms:9.4f} ms | plain "
@@ -1349,6 +1445,13 @@ def main() -> int:
           "stacks of 1, 2, 3: kernel against plain version, tolerance 0")
     errs["uint8"]["Fused-Pipeline"] = max(errs["uint8"]["Fused-Pipeline"],
                                           compare_pipeline_edges(rng))
+    print("[3k] Taps kernels on seeded random elements of radius 1..8, "
+          "uint8 min and max, float32 min: kernel against plain version, "
+          "tolerance 0")
+    random_errs = compare_random_elements(rng)
+    for i, (*_, name, _, _) in enumerate(MORPHOLOGY):
+        for other in (edge_errs, f32_edge_errs, random_errs):
+            morph_errs[i] = max(morph_errs[i], other.get(name, 0.0))
     for dtype, edge in (("uint8", chain_edge_errs),
                         ("float32", chain_f32_edge_errs)):
         for name, err in edge.items():

@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
 SOURCES = ("point.cu", "window.cu", "pipeline.cu", "f32.cu", "chain.cu")
-HEADERS = ("common.cuh", "words.cuh")
+HEADERS = ("common.cuh", "words.cuh", "taps.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdipkernels.so"
@@ -51,8 +51,8 @@ SIGNATURES = {
     "dip_pipeline_u8": (_P, _P, _I, _I, _I, _P),
     "dip_dilation_rect_u8": (_P, _P, _I, _I, _I, _P),
     "dip_dilation_plus_u8": (_P, _P, _I, _I, _I, _P),
-    "dip_erosion_taps_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "dip_dilation_taps_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "dip_erosion_taps_u8": (_P, _P, _I, _I, _I, _P, _I, _P),
+    "dip_dilation_taps_u8": (_P, _P, _I, _I, _I, _P, _I, _P),
     "dip_copy_f32": (_P, _P, _N, _P),
     "dip_inversion_f32": (_P, _P, _N, _P),
     "dip_threshold_f32": (_P, _P, _N, _P),
@@ -64,7 +64,7 @@ SIGNATURES = {
     "dip_conv_dense_f32": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "dip_conv_sep_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "dip_pipeline_f32": (_P, _P, _I, _I, _I, _F, _F, _F, _P),
-    "dip_erosion_taps_f32": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "dip_erosion_taps_f32": (_P, _P, _I, _I, _I, _P, _I, _P),
     "dip_chain_u8": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     "dip_chain_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _F, _F, _P),
 }

@@ -9,8 +9,8 @@
 //   grayscale_f32              <- _grayscale
 //   window_f32<Body>           <- window.py _windowed_call (dtype=f32)
 //     MinRect, MinPlus         <- _make_erosion (body_rect, body_plus)
-//     Taps                     <- _make_erosion (body_generic)
 //     MinSep                   <- _make_erosion_sep
+//   window_taps<F32Min>        <- _make_erosion (body_generic), taps.cuh
 //   window_f32_strip<Body>     <- window.py _windowed_call (dtype=f32)
 //     ConvDense<KH, KW>        <- _make_conv
 //     ConvSep<N>               <- _make_conv_sep
@@ -34,11 +34,15 @@
 //
 // Design: point_f32 and grayscale_f32 move one float4 (16 bytes) a thread
 // over the whole buffer, halo included, since point ops commute with the
-// mirror. window_f32, for the min bodies, is the first skeleton of
-// window_u8: one thread per output element in the padded coordinates of
-// the input and one load a tap, 0.0f in the outer ring of HY rows and HX
-// columns, so every element of the output is written; masks travel by
-// value in the body. window_f32_strip, for the convolutions and the blur,
+// mirror. window_f32, for the 3x3 min bodies (MinRect, MinPlus, MinSep),
+// is the first skeleton of window_u8: one thread per output element in the
+// padded coordinates of the input and one load a tap, 0.0f in the outer
+// ring of HY rows and HX columns, so every element of the output is
+// written. Any other structuring element runs the program of taps.cuh
+// (horizontal run tables, then a vertical pass, over a tile of floats in
+// shared memory; launches counted as window_f32<Taps<Min>>); fminf over
+// values in [0, 1] is exact in any order. window_f32_strip, for the
+// convolutions and the blur,
 // replaced it there (it took 113-160 us at 3504x2336, one load a tap and,
 // for ConvSep, the N horizontal sums of every row again for every output):
 // a thread owns one float4 of a row and walks a strip of rows, loading each
@@ -54,6 +58,7 @@
 // an integer in [0, 16], exact in float32 in any order; only the luma is
 // order-sensitive and it is computed as grayscale_f32 computes it.
 #include "common.cuh"
+#include "taps.cuh"
 
 namespace {
 
@@ -157,36 +162,6 @@ struct MinSep {  // 3x1 column min, then 1x3 min over the column mins
   }
 };
 
-// Erosion by any structuring element of radius <= kMaxTapRadius, by value:
-// bit dx + kMaxTapRadius of rows[dy + kMaxTapRadius] is set for each tap
-// (dy, dx), visited row by row in ascending dx as body_generic visits them
-// (a min is exact in any order). Its ring, the element's largest |dy| and
-// |dx|, is known only at run time.
-constexpr int kMaxTapRadius = 8;
-struct Taps {
-  int hy, hx;
-  uint32_t rows[2 * kMaxTapRadius + 1];
-  __device__ float operator()(const Plane& in, int y, int x) const {
-    float m = __int_as_float(0x7f800000);  // +inf
-#pragma unroll
-    for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) {
-      for (uint32_t b = rows[r]; b != 0; b &= b - 1)
-        m = fminf(m, in.at(y + r - kMaxTapRadius,
-                           x + __ffs(b) - 1 - kMaxTapRadius));
-    }
-    return m;
-  }
-};
-
-// The ring of HY rows and HX columns where a body writes 0: compiled in,
-// or for Taps the element's own.
-template <class Body>
-__device__ int ring_y(const Body&) { return Body::HY; }
-template <class Body>
-__device__ int ring_x(const Body&) { return Body::HX; }
-__device__ int ring_y(const Taps& b) { return b.hy; }
-__device__ int ring_x(const Taps& b) { return b.hx; }
-
 // in and out are (C, Hp, pitch); the grid is (pitch / 32, Hp / 8, C).
 template <class Body>
 __global__ void window_f32(const float* __restrict__ in,
@@ -197,7 +172,7 @@ __global__ void window_f32(const float* __restrict__ in,
   if (x >= pitch || y >= hp) return;
   const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
   const Plane src{in + plane, pitch};
-  const int hy = ring_y(body), hx = ring_x(body);
+  constexpr int hy = Body::HY, hx = Body::HX;
   float v = 0.0f;
   if (y >= hy && y < hp - hy && x >= hx && x < pitch - hx)
     v = body(src, y, x);
@@ -671,18 +646,13 @@ DIP_API int dip_blur3x3_f32(const void* in, void* out, int channels, int hp,
   return launch_strip(in, out, channels, hp, pitch, Blur3x3{}, stream);
 }
 
-// Any structuring element: rows holds 2 * 8 + 1 row bitmasks (Taps), hy and
-// hx its largest |dy| and |dx|.
+// Any structuring element: program holds the n int32 words of its program
+// (ops/window.py TapsProgram.encode), parsed and checked in taps.cuh.
 DIP_API int dip_erosion_taps_f32(const void* in, void* out, int channels,
-                                 int hp, int pitch, int hy, int hx,
-                                 const unsigned* rows, void* stream) {
-  if (hy < 0 || hy > kMaxTapRadius || hx < 0 || hx > kMaxTapRadius)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Taps body;
-  body.hy = hy;
-  body.hx = hx;
-  for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) body.rows[r] = rows[r];
-  return launch_window(in, out, channels, hp, pitch, body, stream);
+                                 int hp, int pitch, const int* program, int n,
+                                 void* stream) {
+  return dip::taps::launch<dip::taps::F32Min>(in, out, channels, hp, pitch,
+                                              program, n, stream);
 }
 
 // kh x kw is 3x3 or 5x5; w holds kh * kw float weights in row-major order.

@@ -2,7 +2,9 @@
 // and the specialised 3x3 blur on one stencil skeleton,
 // window_u8_strip<Body>; and the library surface's morphology: dilation by
 // the 3x3 elements on the same skeleton, any other structuring element on
-// the one-byte-a-thread skeleton window_u8<Taps<Op>>.
+// window_taps<U8<TapsMin|TapsMax>> (taps.cuh: a program of horizontal run
+// tables and a vertical pass over a tile in shared memory, built on the
+// host for the element; launches counted as window_u8<Taps<Min|Max>>).
 //
 // Replaces (dip_benchmark_tpu/ops/pallas/window.py):
 //   window_u8_strip<Body>     <- _windowed_call (the banded DMA skeleton)
@@ -15,8 +17,8 @@
 //   ConvDense<KH, KW>         <- make_convolution (body_packed, body_i32)
 //   ConvSep<N>                <- make_convolution_separated_fused
 //   Blur3x3                   <- make_gaussian_blur_3x3
-//   window_u8<Taps<Op>>       <- body_generic of _make_morphology, via
-//                                make_erosion and make_dilation
+//   window_taps<U8<TapsMin>>, <- body_generic of _make_morphology, via
+//   window_taps<U8<TapsMax>>     make_erosion and make_dilation
 //
 // Bound: device-memory bandwidth for the compulsory traffic, the padded
 // buffer read once and written once (14.75 us for the 3504x2336 planar on
@@ -60,6 +62,7 @@
 // weights compiled in, because op #14 measures that specialisation.
 #include "common.cuh"
 #include "words.cuh"
+#include "taps.cuh"
 
 namespace {
 
@@ -545,83 +548,14 @@ int launch_conv_sep(const void* in, void* out, int channels, int hp,
   return launch_strip(in, out, channels, hp, pitch, body, stream);
 }
 
-// -- the one-byte-a-thread skeleton, for any structuring element ------------
+// -- any structuring element: the program of taps.cuh ------------------------
 
-struct Plane {
-  const uint8_t* __restrict__ p;
-  int pitch;
-  __device__ __forceinline__ int at(int y, int x) const {
-    return p[static_cast<size_t>(y) * pitch + x];
-  }
+struct TapsMin : FieldMin {
+  static constexpr uint32_t kIdentity = 0xffffffffu;
 };
-
-struct Min {
-  static constexpr int kIdentity = 255;
-  __device__ static int apply(int a, int b) { return min(a, b); }
+struct TapsMax : FieldMax {
+  static constexpr uint32_t kIdentity = 0;
 };
-
-struct Max {
-  static constexpr int kIdentity = 0;
-  __device__ static int apply(int a, int b) { return max(a, b); }
-};
-
-// Any structuring element of radius <= kMaxTapRadius, by value: bit
-// dx + kMaxTapRadius of rows[dy + kMaxTapRadius] is set for each tap
-// (dy, dx). The taps are visited row by row, each row in ascending dx, as
-// body_generic visits them (min and max are exact in any order). Its ring
-// is the element's largest |dy| and |dx|, known only at run time.
-constexpr int kMaxTapRadius = 8;
-template <class Op>
-struct Taps {
-  int hy, hx;
-  uint32_t rows[2 * kMaxTapRadius + 1];
-  __device__ int operator()(const Plane& in, int y, int x) const {
-    int acc = Op::kIdentity;
-#pragma unroll
-    for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) {
-      for (uint32_t m = rows[r]; m != 0; m &= m - 1)
-        acc = Op::apply(acc, in.at(y + r - kMaxTapRadius,
-                                   x + __ffs(m) - 1 - kMaxTapRadius));
-    }
-    return acc;
-  }
-};
-
-// One thread per output byte, one byte load per tap; the grid is
-// (pitch / 32, Hp / 8, C). Left for the Taps bodies of the library surface
-// (one launch each, off the matrix): their redesign is later work.
-template <class Body>
-__global__ void window_u8(const uint8_t* __restrict__ in,
-                          uint8_t* __restrict__ out, int hp, int pitch,
-                          const Body body) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= pitch || y >= hp) return;
-  const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
-  const Plane src{in + plane, pitch};
-  int v = 0;
-  if (y >= body.hy && y < hp - body.hy && x >= body.hx && x < pitch - body.hx)
-    v = body(src, y, x);
-  out[plane + static_cast<size_t>(y) * pitch + x] = static_cast<uint8_t>(v);
-}
-
-template <class Op>
-int launch_taps(const void* in, void* out, int channels, int hp, int pitch,
-                int hy, int hx, const unsigned* rows, void* stream) {
-  if (hy < 0 || hy > kMaxTapRadius || hx < 0 || hx > kMaxTapRadius)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Taps<Op> body;
-  body.hy = hy;
-  body.hx = hx;
-  for (int r = 0; r < 2 * kMaxTapRadius + 1; ++r) body.rows[r] = rows[r];
-  const dim3 block(32, 8);
-  const dim3 grid((pitch + block.x - 1) / block.x,
-                  (hp + block.y - 1) / block.y, channels);
-  window_u8<Taps<Op>><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp, pitch,
-      body);
-  return dip::launch_status();
-}
 
 }  // namespace
 
@@ -695,16 +629,18 @@ DIP_API int dip_dilation_plus_u8(const void* in, void* out, int channels,
   return launch_strip(in, out, channels, hp, pitch, MaxPlus{}, stream);
 }
 
-// Any structuring element: rows holds 2 * 8 + 1 row bitmasks (Taps), hy and
-// hx its largest |dy| and |dx|.
+// Any structuring element: program holds the n int32 words of its program
+// (ops/window.py TapsProgram.encode), parsed and checked here.
 DIP_API int dip_erosion_taps_u8(const void* in, void* out, int channels,
-                                int hp, int pitch, int hy, int hx,
-                                const unsigned* rows, void* stream) {
-  return launch_taps<Min>(in, out, channels, hp, pitch, hy, hx, rows, stream);
+                                int hp, int pitch, const int* program, int n,
+                                void* stream) {
+  return dip::taps::launch<dip::taps::U8<TapsMin>>(
+      in, out, channels, hp, pitch, program, n, stream);
 }
 
 DIP_API int dip_dilation_taps_u8(const void* in, void* out, int channels,
-                                 int hp, int pitch, int hy, int hx,
-                                 const unsigned* rows, void* stream) {
-  return launch_taps<Max>(in, out, channels, hp, pitch, hy, hx, rows, stream);
+                                 int hp, int pitch, const int* program, int n,
+                                 void* stream) {
+  return dip::taps::launch<dip::taps::U8<TapsMax>>(
+      in, out, channels, hp, pitch, program, n, stream);
 }

@@ -7,7 +7,8 @@ the layout, so the taps need no boundary logic, and the crop of the output
 is the oracle's answer.
 
 Each op has a wrapper that launches a body of ``window_u8_strip``
-(``kernels/csrc/window.cu``; launches are counted as ``window_u8<Body>``)
+(``kernels/csrc/window.cu``; launches are counted as ``window_u8<Body>``,
+the generic element's as ``window_u8<Taps<Min|Max>>``)
 for a tensor on the card, and a plain PyTorch version (``*_plain``) of the
 same whole-buffer function that the wrapper takes only for a tensor on the
 CPU.
@@ -26,14 +27,20 @@ radius fits the layout's halo. As in the JAX package they are routed by
 the element's structure (``_tap_structure``): the 3x3 square and cross,
 whose extent the kernels compile in, go to ``MinRect``/``MaxRect`` and
 ``MinPlus``/``MaxPlus``; any other element, rectangles and plus shapes of
-other sizes included, to ``Taps<Min>``/``Taps<Max>``, which take the
-element by value as 17 row bitmasks (radius up to ``MAX_TAP_RADIUS``).
-The ring is the element's largest ``|dy|`` rows and ``|dx|`` columns.
+other sizes included, to ``Taps<Min>``/``Taps<Max>`` (radius up to
+``MAX_TAP_RADIUS``). Those run a program built here once per element
+(``tap_runs``, ``taps_program``): each row of the element split into runs
+of dx, a table of horizontal mins (maxes) for each run length the
+program keeps, each built from a shorter one, then the vertical pass over
+the rows' run tables, on a tile in shared memory (``csrc/taps.cuh``; the
+float32 model's ``f32.make_erosion`` runs the same program). The ring is
+the element's largest ``|dy|`` rows and ``|dx|`` columns.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -45,7 +52,7 @@ from . import kernels
 
 CONV_DENSE_SIZES = (3, 5)   # square mask sizes window.cu builds
 CONV_SEP_SIZES = (3, 5)
-MAX_TAP_RADIUS = 8          # window.cu and f32.cu kMaxTapRadius
+MAX_TAP_RADIUS = 8          # taps.cuh kTapsMaxRadius
 # Structuring element -> (kernel name, C entry point) in window.cu.
 EROSION_KERNELS = (
     (spec.CROSS_MASK_3X3, "window_u8<MinPlus>", "dip_erosion_plus_u8"),
@@ -382,6 +389,265 @@ def morphology_plain(planar: torch.Tensor, taps, reduce) -> torch.Tensor:
     return _framed(core, planar, hy, hx)
 
 
+# -- the generic structuring element: runs, then rows ----------------------
+#
+# Taps<Min|Max> (csrc/taps.cuh) run a small program over a tile held in
+# shared memory. A table H_L holds, for each position p of each row of the
+# tile, the min (max) of the L inputs p .. p + L - 1 of that row; H_1 is the
+# input. Each instruction makes one table as the min (max) of shifted
+# tables made before it, and the last one makes the output as the min (max)
+# over the element's rows of the tables its runs need, each shifted by
+# (dy, lo). The program is built here, once per element, and travels by
+# value in the kernel's arguments.
+
+# taps.cuh kTapsRowsU8, kTapsRowsF32: output rows of a tile.
+TAPS_TILE_ROWS = {"uint8": 64, "float32": 32}
+TAPS_FRAME = 128         # taps.cuh kTapsFrame: positions of a tile row
+TAPS_MAX_SLOTS = 8       # taps.cuh kTapsMaxSlots: tables held at once
+TAPS_MAX_INSTRS = 40     # taps.cuh kTapsMaxInstrs
+TAPS_MAX_TERMS = 400     # taps.cuh kTapsMaxTerms
+DIRECT_RUN = 3           # a run this short is built from the input taps
+
+
+@dataclasses.dataclass(frozen=True)
+class TapRuns:
+    """A structuring element as horizontal runs.
+
+    ``runs[dy + hy]`` lists the maximal runs ``(lo, hi)`` of dx in row dy
+    (empty for a row with no tap). ``builds`` lists, in build order, each
+    run length ``L`` > 1 that a row or a later build needs, as ``(L,
+    terms)``: ``H_L[p]`` is the min (max) over ``(a, shift)`` in ``terms``
+    of ``H_a[p + shift]``, where every ``a`` is 1 or a length built before
+    ``L``. ``rows[dy + hy]`` lists the terms ``(L, dx)`` whose tables the
+    output reduces in row dy: ``H_L`` shifted by dx covers the taps
+    ``dx .. dx + L - 1`` of the row.
+    """
+    hy: int
+    hx: int
+    runs: tuple
+    builds: tuple
+    rows: tuple
+
+    def taps(self) -> set:
+        """The (dy, dx) the rows cover: the element's taps."""
+        return {(dy - self.hy, dx + k) for dy, terms in enumerate(self.rows)
+                for length, dx in terms for k in range(length)}
+
+
+def _row_runs(dxs) -> tuple:
+    runs, lo = [], None
+    for dx in sorted(dxs):
+        if lo is None or dx != hi + 1:
+            if lo is not None:
+                runs.append((lo, hi))
+            lo = dx
+        hi = dx
+    if lo is not None:
+        runs.append((lo, hi))
+    return tuple(runs)
+
+
+def tap_runs(taps, tables=None) -> TapRuns:
+    """The element ``taps`` as runs, with a table for each length in
+    ``tables`` (default: each run length of the element; ``"pow2"``: the
+    powers of two up to the longest run, at most five tables for any
+    element). A table is built from the largest shorter table that covers
+    half of it, or from the input taps up to ``DIRECT_RUN``, or else from a
+    table of half its length, built first. A run whose length has no table
+    is the union of two shifted copies of the longest table no longer than
+    the run that covers half of it, or has a table built for it."""
+    taps = tuple((int(dy), int(dx)) for dy, dx in taps)
+    hy = max(abs(dy) for dy, _ in taps)
+    hx = max(abs(dx) for _, dx in taps)
+    runs = tuple(_row_runs({dx for d, dx in taps if d == dy})
+                 for dy in range(-hy, hy + 1))
+    lengths = sorted({hi - lo + 1 for row in runs for lo, hi in row})
+    if tables is None:
+        tables = lengths
+    elif tables == "pow2":
+        tables = [1 << k for k in range(1, lengths[-1].bit_length())]
+    built, builds = {1}, []
+
+    def cover(length: int):
+        return max((a for a in built if a < length <= 2 * a), default=None)
+
+    def need(length: int) -> None:
+        if length in built:
+            return
+        a = cover(length)
+        if a is not None:
+            terms = ((a, 0), (a, length - a))
+        elif length <= DIRECT_RUN:
+            terms = tuple((1, k) for k in range(length))
+        else:
+            a = (length + 1) // 2
+            need(a)
+            terms = ((a, 0), (a, length - a))
+        builds.append((length, terms))
+        built.add(length)
+
+    for length in sorted(tables):
+        need(length)
+    rows = []
+    for row in runs:
+        terms = []
+        for lo, hi in row:
+            length = hi - lo + 1
+            if length not in built and cover(length) is None:
+                need(length)
+            a = length if length in built else cover(length)
+            terms += [(a, lo)] if a == length else [(a, lo),
+                                                    (a, hi - a + 1)]
+        rows.append(tuple(terms))
+    used = {a for row in rows for a, _ in row}
+    for length, terms in reversed(builds):   # drop tables nothing reads
+        if length not in used:
+            builds.remove((length, terms))
+        else:
+            used |= {a for a, _ in terms}
+    return TapRuns(hy, hx, runs, tuple(builds), tuple(rows))
+
+
+@dataclasses.dataclass(frozen=True)
+class TapsProgram:
+    """The instructions of the Taps kernels for one element.
+
+    Tables live in ``slots`` shared-memory slots of ``rows + 2 hy`` frame
+    rows each (``rows``: the tile's output rows); frame row f is image row ``y0 - hy + f`` of a
+    tile whose outputs are rows ``y0 ..``, and frame position q is column
+    ``x0 - margin + q``. Slot 0 holds the input. Each instruction is
+    ``(dst, r0, r1, terms)``: for frame rows ``[r0, r1)`` and every
+    position, the min (max) over ``(slot, dy, dx)`` in ``terms`` of that
+    slot at row + dy and position + dx; the last one is the output (rows
+    ``[hy, hy + rows)``), which the kernel stores, so its dst is -1.
+    """
+    hy: int
+    hx: int
+    margin: int
+    slots: int
+    instrs: tuple
+    rows: int
+    tables: tuple
+
+    def encode(self) -> list[int]:
+        """The int32 words ``dip_*_taps_*`` parse: hy, hx, margin, slots,
+        the instruction count, then each instruction as dst, r0, r1, its
+        term count and each term as slot, dy, dx."""
+        words = [self.hy, self.hx, self.margin, self.slots, len(self.instrs)]
+        for dst, r0, r1, terms in self.instrs:
+            words += [dst, r0, r1, len(terms)]
+            for term in terms:
+                words += list(term)
+        return words
+
+    def stats(self) -> dict:
+        """Per output position of a tile: shared-memory reads (a read at an
+        odd dx takes two words in the uint8 kernel: ``odd_reads``), writes
+        and min/max operations, frame columns not counted."""
+        rows = self.rows
+        reads = sum((r1 - r0) * len(t) for _, r0, r1, t in self.instrs)
+        odd = sum((r1 - r0) * sum(dx & 1 for *_, dx in t)
+                  for _, r0, r1, t in self.instrs)
+        writes = sum(r1 - r0 for _, r0, r1, _ in self.instrs[:-1]) + rows
+        ops = sum((r1 - r0) * (len(t) - 1) for _, r0, r1, t in self.instrs)
+        return {"instrs": len(self.instrs), "slots": self.slots,
+                "tables": self.tables, "reads": reads / rows,
+                "odd_reads": odd / rows, "writes": writes / rows,
+                "ops": ops / rows}
+
+    def cost(self) -> float:
+        """What ``taps_program`` minimises: shared-memory reads, an odd-dx
+        read at one and a half, and writes, an output. On the H100 it
+        ranks the programs of the library's elements as their times do
+        (``window_lab.py --programs``, PERF.md)."""
+        s = self.stats()
+        return s["reads"] + 0.5 * s["odd_reads"] + s["writes"]
+
+
+def _compile(runs: TapRuns, rows_out: int) -> TapsProgram:
+    hy = runs.hy
+    out_terms = [(length, dy - hy, dx) for dy, row in enumerate(runs.rows)
+                 for length, dx in row]
+    # Frame rows each table is needed on, from the output back.
+    need = {}
+
+    def extend(length, r0, r1):
+        a, b = need.get(length, (r0, r1))
+        need[length] = (min(a, r0), max(b, r1))
+
+    for length, dy, _ in out_terms:
+        extend(length, hy + dy, hy + rows_out + dy)
+    for length, terms in reversed(runs.builds):
+        for a, _ in terms:
+            extend(a, *need[length])
+    # Slots: a table's slot is free after the last instruction that reads
+    # it; an instruction never writes a slot it reads.
+    n = len(runs.builds)
+    last = {1: -1}
+    for i, (_, terms) in enumerate(runs.builds):
+        for a, _ in terms:
+            last[a] = i
+    for length, _, _ in out_terms:
+        last[length] = n
+    slot_of, free, used = {1: 0}, [], 1
+    instrs = []
+    for i, (length, terms) in enumerate(runs.builds):
+        if free:
+            dst = free.pop(0)
+        else:
+            dst, used = used, used + 1
+        r0, r1 = need[length]
+        instrs.append((dst, r0, r1, tuple((slot_of[a], 0, s)
+                                          for a, s in terms)))
+        for a, _ in terms:
+            if last[a] == i and a in slot_of:
+                free.append(slot_of.pop(a))
+                free.sort()
+        slot_of[length] = dst
+    instrs.append((-1, hy, hy + rows_out,
+                   tuple((slot_of[length], dy, dx)
+                         for length, dy, dx in out_terms)))
+    margin = 4 if runs.hx <= 4 else 8
+    return TapsProgram(hy, runs.hx, margin, used, tuple(instrs), rows_out,
+                       tuple(length for length, _ in runs.builds))
+
+
+def _fits(prog: TapsProgram) -> bool:
+    return (prog.slots <= TAPS_MAX_SLOTS
+            and len(prog.instrs) <= TAPS_MAX_INSTRS
+            and sum(len(t) for *_, t in prog.instrs) <= TAPS_MAX_TERMS)
+
+
+@functools.lru_cache(maxsize=256)
+def taps_program(taps, rows: int) -> TapsProgram:
+    """The Taps kernels' program for element ``taps``: the cheapest
+    (``TapsProgram.cost``) that fits the kernels' limits of the
+    power-of-two tables and of the tables of the element's run lengths
+    less any whose dropping lowers the cost (greedily, one at a time).
+    ``rows``: the tile's output rows (``TAPS_TILE_ROWS`` of the data
+    model; other values only for kernels built with others, as the lab
+    builds them)."""
+    taps = tuple(sorted({(int(dy), int(dx)) for dy, dx in taps}))
+
+    def program(tables):
+        prog = _compile(tap_runs(taps, tables), rows)
+        return prog if _fits(prog) else None
+
+    progs = [p for p in (program("pow2"),) if p]
+    tables = {length for length, _ in tap_runs(taps).builds}
+    best = program(sorted(tables))
+    while best is not None:
+        progs.append(best)
+        trials = [p for p in (program(sorted(tables - {length}))
+                              for length in sorted(tables)) if p]
+        better = [p for p in trials if p.cost() < best.cost()]
+        if not better:
+            break
+        best = min(better, key=TapsProgram.cost)
+        tables = set(best.tables)
+    return min(progs, key=TapsProgram.cost)
+
+
 # (dtype, reduce, body) -> (kernel name, C entry point).
 MORPHOLOGY_KERNELS = {
     ("uint8", "min", "rect"): ("window_u8<MinRect>", "dip_erosion_rect_u8"),
@@ -415,11 +681,10 @@ def morphology_launch(taps, reduce: str, dtype: str = "uint8") -> tuple:
         raise ValueError(f"structuring element radius {max(hy, hx)} "
                          f"exceeds the kernels' {MAX_TAP_RADIUS}")
     name, entry = MORPHOLOGY_KERNELS[(dtype, reduce, body)]
-    rows = [0] * (2 * MAX_TAP_RADIUS + 1)
-    for dy, dx in taps:
-        rows[dy + MAX_TAP_RADIUS] |= 1 << (dx + MAX_TAP_RADIUS)
-    extra = ((hy, hx, (ctypes.c_uint * len(rows))(*rows))
-             if body == "taps" else ())
+    extra = ()
+    if body == "taps":
+        words = taps_program(tuple(taps), TAPS_TILE_ROWS[dtype]).encode()
+        extra = (_int_array(words), len(words))
     return name, entry, extra
 
 

@@ -38,6 +38,7 @@ ELEMENTS = {
     "diamond-5x5": DIAMOND_5X5,
     "ring-5x5": RING_5X5,
     "row-1x5": np.ones((1, 5), bool),
+    "square-5x5": np.ones((5, 5), bool),
 }
 # Element -> the kernel each make_* function routes it to.
 KERNELS = {
@@ -51,6 +52,15 @@ KERNELS = {
                  "window_f32<Taps<Min>>"),
     "row-1x5": ("window_u8<Taps<Min>>", "window_u8<Taps<Max>>",
                 "window_f32<Taps<Min>>"),
+    "square-5x5": ("window_u8<Taps<Min>>", "window_u8<Taps<Max>>",
+                   "window_f32<Taps<Min>>"),
+}
+# Elements wider than the default halo, on a layout of their radius.
+LARGE = {
+    "square-17x17": np.ones((17, 17), bool),
+    "disc-9x9": np.add.outer(np.arange(-4, 5) ** 2,
+                             np.arange(-4, 5) ** 2) <= 16,
+    "frame-15x11": np.pad(np.zeros((13, 9), bool), 1, constant_values=True),
 }
 
 
@@ -58,7 +68,8 @@ def crop_u8(planar: torch.Tensor, layout) -> np.ndarray:
     return from_planar_padded(planar, layout)
 
 
-@pytest.mark.parametrize("name", ["square-3x3", "cross-3x3", "diamond-5x5"])
+@pytest.mark.parametrize("name", ["square-3x3", "cross-3x3", "diamond-5x5",
+                                  "square-5x5"])
 @pytest.mark.parametrize("which", ["dilation", "erosion"])
 def test_uint8_matches_jax_morphology_and_oracle(which, name, small_image):
     mask = ELEMENTS[name]
@@ -205,3 +216,39 @@ def test_kernels_match_plain_on_card(name):
             assert torch.equal(got, window.morphology_plain(planar, taps,
                                                             reduce))
         assert kernels.LAUNCHES == {fn.kernel: 3}
+
+
+@pytest.mark.parametrize("name", sorted(LARGE))
+def test_large_elements_match_the_oracle(name, small_image):
+    mask = LARGE[name]
+    taps = window.mask_to_taps(mask)
+    layout = make_layout(*small_image.shape[:2], pad=max(mask.shape) // 2)
+    got = crop_u8(window.make_dilation(layout, taps)(
+        to_planar_padded(small_image, layout)), layout)
+    np.testing.assert_array_equal(got, oracle.dilation(small_image, mask))
+    got = from_planar_padded_f32(f32.make_erosion(layout, taps)(
+        to_planar_padded_f32(small_image, layout)), layout)
+    np.testing.assert_array_equal(got, oracle_f32.to_uint8_hwc(
+        oracle_f32.erosion(oracle_f32.from_uint8_hwc(small_image), mask)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LARGE))
+def test_large_elements_match_plain_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    mask = LARGE[name]
+    taps = window.mask_to_taps(mask)
+    rng = np.random.default_rng(4)
+    for h, w in ((9, 9), (37, 53), (130, 250)):
+        layout = make_layout(h, w, pad=max(mask.shape) // 2)
+        image = rng.integers(0, 256, (h, w, 3), np.uint8)
+        for make, bake, reduce in (
+                (window.make_dilation, to_planar_padded, torch.maximum),
+                (window.make_erosion, to_planar_padded, torch.minimum),
+                (f32.make_erosion, to_planar_padded_f32, torch.minimum)):
+            planar = bake(image, layout).cuda()
+            got = make(layout, taps)(planar)
+            torch.cuda.synchronize()
+            assert torch.equal(got, window.morphology_plain(planar, taps,
+                                                            reduce))
