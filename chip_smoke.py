@@ -66,12 +66,19 @@ csrc`` with nvcc, then, with no fallback anywhere:
    ``chain_u8`` included;
    [4f] the same with ``--dtype float32 --fuse C2``, zeroed again, and a
    launch of every float32 kernel, ``chain_f32`` included;
+   [4l] the library path in each data model (``--path library --rounds 20
+   --verify --pipeline --exec --csv``), TF32 switched on before and the
+   counts zeroed: exit 0, 15 rows, 13 dumps, a CSV row under
+   ``H100-torch``, no port kernel launched, TF32 off after, and 13
+   ``--exec`` rows, each a slope above 0 that every sample resolves;
 5. drives the batch tool (``models.batch.main``, ``--backend cuda``) over
    a directory of eight 3504x2336 images and one of another shape, with
    the counts zeroed again, and requires every output to equal the
    oracle's fused pipeline and ``pipeline_u8`` to have run; then again
    with ``--op`` C3, every output equal to the chain's sequential oracle
-   and one ``chain_u8`` launch per shape group;
+   and one ``chain_u8`` launch per shape group; then with ``--op
+   Convolution-5x5``, which runs on the library path: every output equal
+   to the oracle and no kernel launched;
 6. times each kernel against its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events, in the order
    kernel, plain, library, library, plain, kernel, behind a sleep kernel
@@ -89,6 +96,20 @@ csrc`` with nvcc, then, with no fallback anywhere:
    the summed device times of the port's unfused kernels for the same ops
    (from phases 6 and 6f) as its yardstick (no single PyTorch call
    computes a chain), and for the morphology kernels;
+   [4x] the CLI's ``--exec`` in each data model (``--rounds 5 --pipeline
+   --fuse`` C1 or C2): 13 + 1 rows, each a slope above 0 with its spread,
+   printed beside the kernel's event time from phase 6, 6f or 6c and the
+   ratio of the two, and the peak memory the CUDA graphs took;
+   [4c] one replay of a K = 1 CUDA graph of each kernel op of both models
+   and of each main-path chain, equal to a direct call (tolerance 0);
+   then ``--chained 20 --pipeline``: 13 rows, each row's time an
+   application within [0.5, 2] of the event time plus 10 µs (a row not
+   divided by K is 20 times as long);
+   [4p] ``--profile`` (``--rounds 20 --pipeline``): the Chrome trace names
+   ``window_u8_strip`` and ``pipeline_u8`` among its CUDA kernels, and
+   ``benchmarks/h100/host_share.py`` splits each kernel's rounds into
+   harness, wrapper, launch, allocation, synchronize and idle; then the
+   seconds the phases of this paragraph took, and the total;
 7. prints ``{"kernels": [...]}`` (46 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib.util
 import io
 import json
 import os
@@ -122,6 +144,8 @@ from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
 from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32, f32,
                                          kernels, window)
 from dip_benchmark_tpu_torch.ops.kernels import build
+from dip_benchmark_tpu_torch.runtime import exec_timing
+from dip_benchmark_tpu_torch.session import BenchmarkSession
 from dip_benchmark_tpu_torch.utils.image import (from_planar_padded,
                                                  from_planar_padded_f32,
                                                  load_image, make_layout,
@@ -1090,25 +1114,16 @@ def drive_main_path(model: Model, img, label, fuse) -> dict:
     """Run the port's CLI once at full size with the pipeline row and the
     chain ``fuse`` in ``model``'s data model; return that run's launch
     counts."""
-    path = os.path.join(OUT, "benchmark-image.png")
-    save_image(path, img)
     suffix = "" if model.dtype == "uint8" else "-" + model.dtype
-    dumps = os.path.join(OUT, "dumps" + suffix)
-    shutil.rmtree(dumps, ignore_errors=True)
-    csv = os.path.join(OUT, f"results{suffix}.csv")
-    if os.path.exists(csv):
-        os.unlink(csv)
-    buf = io.StringIO()
+    dumps = fresh("dumps" + suffix)
+    csv = fresh(f"results{suffix}.csv")
     kernels.reset_launches()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main([path, dumps, "--rounds", "50", "--verify",
-                       "--pipeline", "--fuse", ",".join(fuse),
-                       "--dtype", model.dtype, "--csv", csv])
+    rc, text = run_cli([save_benchmark_image(img), dumps, "--rounds", "50",
+                        "--verify", "--pipeline", "--fuse", ",".join(fuse),
+                        "--dtype", model.dtype, "--csv", csv])
     counts = dict(kernels.LAUNCHES)
-    text = buf.getvalue()
-    print(text, end="")
     check(rc == 0, f"cli.main exited {rc}")
-    rows = [ln for ln in text.splitlines() if ln.startswith("| ")]
+    rows = table_rows(text)
     check(len(rows) == 16, f"expected 16 table rows, got {len(rows)}")
     prefixes = [p for _, p, _ in spec.OPERATION_MATRIX if p] + [
         "pipeline", "chain"]
@@ -1143,14 +1158,21 @@ def write_batch_inputs(images, other) -> tuple[str, dict]:
 
 
 def drive_batch_tool(indir: str, named: dict, cols=None) -> dict:
-    """Run the batch tool over ``indir`` with the fused pipeline, or with
-    ``--op`` the chain ``cols``; return that run's launch counts."""
+    """Run the batch tool over ``indir`` with the fused pipeline, with
+    ``--op`` the chain ``cols`` (a list), or with ``--op`` the single op
+    ``cols`` (a column, which runs on the library path and launches no
+    kernel); return that run's launch counts."""
+    single = isinstance(cols, str)
     outdir = os.path.join(OUT, "batch_out" if cols is None
+                          else "batch_out_op" if single
                           else "batch_out_chain")
     shutil.rmtree(outdir, ignore_errors=True)
-    op = [] if cols is None else ["--op", ",".join(cols)]
+    op = ([] if cols is None else ["--op", cols] if single
+          else ["--op", ",".join(cols)])
     if cols is None:
         kernel, expect = "pipeline_u8", oracle.fused_pipeline
+    elif single:
+        kernel, expect = None, oracle.IMAGE_OPS[cols]
     else:
         kernel, expect = "chain_u8", chain.chain_row_parts(cols)[2]
     kernels.reset_launches()
@@ -1168,15 +1190,258 @@ def drive_batch_tool(indir: str, named: dict, cols=None) -> dict:
                              expect(img)),
               f"batch tool: {name} differs from the oracle")
     groups = len({img.shape for img in named.values()})
-    check(counts.get(kernel, 0) == groups,
-          f"batch tool launched {kernel} {counts.get(kernel)} times, want "
-          f"one per shape group ({groups})")
-    what = "pipeline" if cols is None else "--op " + ",".join(cols)
+    if kernel is None:
+        check(not counts, f"batch tool --op {cols} launched port kernels "
+                          f"{counts}; the library path launches none")
+    else:
+        check(counts.get(kernel, 0) == groups,
+              f"batch tool launched {kernel} {counts.get(kernel)} times, "
+              f"want one per shape group ({groups})")
+    what = ("pipeline" if cols is None else "--op " + cols if single
+            else "--op " + ",".join(cols))
     print(f"  batch tool ({what}): rc 0, {len(named)} images in "
           f"{seconds:.2f} s (PNG decode and encode included), every output "
           f"equal to the oracle; launches {counts} | "
           f"{buf.getvalue().strip()}")
     return counts
+
+
+# --exec prints this header, then one row an op (cli.print_exec_table).
+EXEC_HEADER = "| device execution time per application"
+CHAINED_K = 20
+
+
+def run_cli(args) -> tuple[int, str]:
+    """``cli.main(args)``'s exit code and standard output, echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    text = buf.getvalue()
+    print(text, end="")
+    return rc, text
+
+
+def table_rows(text: str) -> list[str]:
+    """The benchmark table's rows (not the --exec rows)."""
+    return [ln for ln in text.splitlines()
+            if ln.startswith("| ") and "(once)" in ln]
+
+
+def exec_rows(text: str) -> list[dict]:
+    """The --exec rows: column, slope b, its spread and where it ran."""
+    lines = text.splitlines()
+    heads = [i for i, ln in enumerate(lines) if ln.startswith(EXEC_HEADER)]
+    check(len(heads) == 1, f"{len(heads)} --exec headers")
+    rows = []
+    for ln in lines[heads[0] + 1:]:
+        if not ln.startswith("| "):
+            break
+        cells = [c.strip() for c in ln.strip().strip("|").split("|")]
+        spread = cells[3].split()
+        rows.append({"col": cells[0], "s": float(cells[1].rstrip("s")),
+                     "b_us": float(cells[2].split()[1]),
+                     "lo_us": float(spread[1].rstrip(".")),
+                     "hi_us": float(spread[2]),
+                     "se_us": float(cells[4].split()[1]),
+                     "a_us": float(cells[5].split()[1]),
+                     "ks": cells[6], "where": cells[7],
+                     "mark": cells[8] if len(cells) > 8 else ""})
+    return rows
+
+
+def check_exec_rows(rows: list[dict], cols: list[str], what: str) -> None:
+    """One row a column, in order, each slope finite and above 0 with a
+    spread that every sample resolves above 0, and nothing marked."""
+    check([r["col"] for r in rows] == cols,
+          f"{what}: --exec rows {[r['col'] for r in rows]}, want {cols}")
+    for r in rows:
+        check(np.isfinite(r["b_us"]) and r["b_us"] > 0 and r["lo_us"] > 0
+              and r["lo_us"] <= r["b_us"] <= r["hi_us"] and not r["mark"],
+              f"{what}: unresolved --exec row {r}")
+
+
+def save_benchmark_image(img) -> str:
+    path = os.path.join(OUT, "benchmark-image.png")
+    save_image(path, img)
+    return path
+
+
+def fresh(name: str) -> str:
+    """A path under OUT with nothing at it."""
+    path = os.path.join(OUT, name)
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.unlink(path)
+    return path
+
+
+DEVICE_COLS = [c for c in KERNELS]  # the 12 device ops and the pipeline
+
+
+def drive_library_path(model: Model, img) -> list[dict]:
+    """[4l] The CLI on the library path with --verify, the pipeline row,
+    a CSV row and --exec, with TF32 switched on before it and the launch
+    counts zeroed: exit 0, 15 rows, 13 dumps, the library tool's CSV row,
+    no port kernel launched, TF32 off after, 13 --exec rows."""
+    t0 = time.perf_counter()
+    suffix = "" if model.dtype == "uint8" else "-" + model.dtype
+    dumps = fresh("dumps-library" + suffix)
+    csv = fresh(f"results-library{suffix}.csv")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    kernels.reset_launches()
+    rc, text = run_cli([save_benchmark_image(img), dumps, "--path",
+                        "library", "--rounds", "20", "--verify",
+                        "--pipeline", "--exec", "--dtype", model.dtype,
+                        "--csv", csv])
+    counts = dict(kernels.LAUNCHES)
+    check(rc == 0, f"cli.main --path library exited {rc}")
+    check(len(table_rows(text)) == 15,
+          f"expected 15 table rows, got {len(table_rows(text))}")
+    prefixes = [p for _, p, _ in spec.OPERATION_MATRIX if p] + ["pipeline"]
+    missing = [p for p in prefixes if not os.path.exists(
+        os.path.join(dumps, f"{p}-benchmark-image.png"))]
+    check(len(prefixes) == 13 and not missing, f"missing dumps {missing}")
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    check(len(lines) == 2 and lines[1].startswith("H100-torch,"),
+          f"bad library CSV {lines}")
+    check(not counts, f"the library path launched port kernels {counts}")
+    check(torch.backends.cudnn.allow_tf32 is False
+          and torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 is on after a library-path run")
+    rows = exec_rows(text)
+    check_exec_rows(rows, DEVICE_COLS, f"library {model.dtype}")
+    print(f"  library path ({model.dtype}): rc 0, 15 rows, 13 dumps, "
+          f"--verify passed, CSV row H100-torch, no port kernel launched, "
+          f"TF32 off; 13 --exec rows; {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def drive_exec(model: Model, img, fuse, event_ms: dict) -> dict:
+    """[4x] The kernel path's --exec with the pipeline and the chain
+    ``fuse``: 13 + 1 rows, each a resolved slope, printed beside the
+    kernel's event time (phase 6, 6f or 6c) and the ratio of the two; the
+    peak memory the graphs of the largest K took."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    rc, text = run_cli([save_benchmark_image(img), fresh("exec-out"),
+                        "--rounds", "5", "--pipeline", "--exec", "--fuse",
+                        ",".join(fuse), "--dtype", model.dtype])
+    counts = dict(kernels.LAUNCHES)
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    check(rc == 0, f"cli.main --exec exited {rc}")
+    rows = exec_rows(text)
+    check_exec_rows(rows, DEVICE_COLS + ["Fused-Chain"],
+                    f"kernel {model.dtype}")
+    print(f"  {model.dtype}: --exec slope b against the kernel's event time "
+          f"(median of {TIMED_LAUNCHES} single launches); peak memory "
+          f"{peak_mb:.1f} MB above {base / 1e6:.1f} MB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r in rows:
+        e_us = 1e3 * event_ms[r["col"]]
+        r["event_us"] = e_us
+        print(f"    {r['col']:24s} b {r['b_us']:9.3f} us (spread "
+              f"{r['lo_us']:.3f}..{r['hi_us']:.3f}, a {r['a_us']:8.2f} us, "
+              f"{r['where']}) | event {e_us:9.3f} us | b/event "
+              f"{r['b_us'] / e_us:.3f}")
+    return {"rows": rows, "peak_mb": peak_mb, "launches": counts}
+
+
+def check_graph_replays(img) -> int:
+    """[4c] One replay of a K = 1 CUDA graph of each kernel op of each
+    model, and of each main-path chain, equal to a direct call of the op
+    (tolerance 0); returns how many were held."""
+    n = 0
+    for dtype, cols in (("uint8", CHAINS["C1"]), ("float32", CHAINS["C2"])):
+        session = BenchmarkSession(img, torch.device("cuda"), dtype=dtype)
+        session.chain_operation(cols)
+        src = session._device_input()
+        name, fn, planar = session._chain_exec
+        cases = [(col, session._ops[col], src) for col in DEVICE_COLS]
+        cases.append((name, fn, planar))
+        graphs = exec_timing.GraphCache()
+        for col, op, x in cases:
+            want = op(x)
+            got = graphs.replay(col, op, x, 1)
+            check(torch.equal(got, want), f"{dtype} {col}: the K = 1 graph "
+                  f"differs from a direct call")
+            n += 1
+        del session, graphs
+    torch.cuda.empty_cache()
+    return n
+
+
+def drive_chained(img, event_ms: dict) -> list[dict]:
+    """[4c] The CLI with --chained and the pipeline: exit 0, 13 rows, each
+    row's time per application within [0.5, 2] of the kernel's event time
+    plus 10 µs, which a row not divided by K (K times as long) misses."""
+    t0 = time.perf_counter()
+    rc, text = run_cli([save_benchmark_image(img), fresh("chained-out"),
+                        "--rounds", "20", "--pipeline", "--chained",
+                        str(CHAINED_K)])
+    check(rc == 0, f"cli.main --chained exited {rc}")
+    rows = table_rows(text)
+    check(len(rows) == 13, f"expected 13 --chained rows, got {len(rows)}")
+    out = []
+    for col, ln in zip(DEVICE_COLS, rows):
+        per_app_us = 1e6 * float(ln.split("|")[3].split("s (")[0])
+        e_us = 1e3 * event_ms[col]
+        check(0.5 * e_us <= per_app_us <= 2 * e_us + 10,
+              f"--chained {CHAINED_K} {col}: {per_app_us} us an "
+              f"application against an event time of {e_us} us")
+        out.append({"col": col, "per_app_us": per_app_us, "event_us": e_us})
+    print(f"  --chained {CHAINED_K}: rc 0, 13 rows, each within "
+          f"[0.5, 2] x event + 10 us; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def load_host_share():
+    """``benchmarks/h100/host_share.py`` as a module."""
+    spec_ = importlib.util.spec_from_file_location(
+        "host_share", os.path.join(ROOT, "benchmarks", "h100",
+                                   "host_share.py"))
+    module = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(module)
+    return module
+
+
+def drive_profile(img) -> list[dict]:
+    """[4p] The CLI with --profile on the uint8 kernel path: the Chrome
+    trace names window_u8_strip and pipeline_u8 among its CUDA kernels;
+    the host share of each kernel's rounds split by host_share.py."""
+    t0 = time.perf_counter()
+    prof = fresh("profile")
+    rc, text = run_cli([save_benchmark_image(img), fresh("profile-out"),
+                        "--rounds", "20", "--pipeline", "--profile", prof])
+    check(rc == 0, f"cli.main --profile exited {rc}")
+    path = os.path.join(prof, "trace.json")
+    check(os.path.exists(path), f"no trace at {path}")
+    with open(path) as f:
+        trace = json.load(f)
+    names = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "kernel"}
+    for want in ("window_u8_strip", "pipeline_u8"):
+        check(any(want in n for n in names),
+              f"the trace names no {want} kernel")
+    host_share = load_host_share()
+    rows = host_share.split(path)
+    check(len(rows) == 13, f"host split of {len(rows)} kernels, want 13")
+    print(f"  trace {os.path.getsize(path) / 1e6:.1f} MB, "
+          f"{time.perf_counter() - t0:.1f} s; host share of a round "
+          f"(medians, µs; host_share.py):")
+    print("    kernel | round | kernel | harness | wrapper | launch | "
+          "alloc | sync wait | sync own | idle")
+    for r in rows:
+        print(f"    {r['kernel']} | " + " | ".join(
+            f"{r[p]:.1f}" for p in host_share.PARTS)
+            + f" | {100 * r['idle']:.0f} %")
+    return rows
+
 
 
 def device_ms(fn, planar, n: int) -> list[float]:
@@ -1369,6 +1634,7 @@ def time_morphology(models: dict, img, errs: list,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1470,12 +1736,23 @@ def main() -> int:
               f"{','.join(fuse[model.dtype])}")
         counts[model.dtype] = drive_main_path(model, img, label,
                                               fuse[model.dtype])
+    t_new = time.perf_counter()  # the phases added with --path and --exec
+    library_exec = {}
+    for model in (u8, f32):
+        print(f"[4l] library path: dip_benchmark_tpu_torch.cli.main --path "
+              f"library --dtype {model.dtype} --verify --pipeline --exec "
+              f"--csv | {smi}")
+        library_exec[model.dtype] = drive_library_path(model, img)
+    seconds_new = time.perf_counter() - t_new
 
     print("[5] batch tool: dip_benchmark_tpu_torch.models.batch.main")
     other = np.ascontiguousarray(img[: h // 2, : w // 3])
     indir, named = write_batch_inputs(variants, other)
     batch_counts = drive_batch_tool(indir, named)
     chain_batch_counts = drive_batch_tool(indir, named, CHAINS["C3"])
+    t_new = time.perf_counter()
+    op_batch_counts = drive_batch_tool(indir, named, "Convolution-5x5")
+    seconds_new += time.perf_counter() - t_new
 
     def timing_header(tag, model):
         print(f"[{tag}] {model.dtype} device time, median of "
@@ -1505,15 +1782,51 @@ def main() -> int:
                                counts[model.dtype])
     entries += time_morphology(models, img, morph_errs, morph_counts)
 
+    t_new = time.perf_counter()
+    event_ms = {}
+    for model in (u8, f32):
+        event_ms[model.dtype] = {e["op"]: e["ms"] for e in entries
+                                 if e["dtype"] == model.dtype}
+        chain_op = next(e["op"] for e in entries if e["dtype"] == model.dtype
+                        and e["op"].startswith(
+                            f"C{1 if model is u8 else 2} "))
+        event_ms[model.dtype]["Fused-Chain"] = event_ms[model.dtype][chain_op]
+    exec_runs = {}
+    for model in (u8, f32):
+        print(f"[4x] execution time: dip_benchmark_tpu_torch.cli.main "
+              f"--dtype {model.dtype} --pipeline --exec --fuse "
+              f"{','.join(fuse[model.dtype])} | {smi}")
+        exec_runs[model.dtype] = drive_exec(model, img, fuse[model.dtype],
+                                            event_ms[model.dtype])
+    print(f"[4c] chained: K = 1 CUDA graphs against direct calls, then "
+          f"dip_benchmark_tpu_torch.cli.main --pipeline --chained "
+          f"{CHAINED_K} | {smi}")
+    t0 = time.perf_counter()
+    n = check_graph_replays(img)
+    print(f"  {n} K = 1 graph replays equal to direct calls (tolerance 0); "
+          f"{time.perf_counter() - t0:.1f} s")
+    chained = drive_chained(img, event_ms["uint8"])
+    print(f"[4p] profile: dip_benchmark_tpu_torch.cli.main --pipeline "
+          f"--profile | {smi}")
+    host_split = drive_profile(img)
+    seconds_new += time.perf_counter() - t_new
+    print(f"[4l 4x 4c 4p 5] the phases of --path, --exec, --chained, "
+          f"--profile and the batch tool's library op took "
+          f"{seconds_new:.1f} s")
+
     want = 26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
     check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
     summary = {"kernels": entries}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump({**summary, "serving": serving, "batch_tool_launches":
                    batch_counts, "chain_batch_tool_launches":
-                   chain_batch_counts, "morphology_launches": morph_counts,
-                   "main_path_launches": counts,
-                   "nvidia_smi": smi, "image": label}, f, indent=1)
+                   chain_batch_counts, "op_batch_tool_launches":
+                   op_batch_counts, "morphology_launches": morph_counts,
+                   "main_path_launches": counts, "library_exec": library_exec,
+                   "exec": exec_runs, "chained": chained,
+                   "host_share": host_split, "nvidia_smi": smi,
+                   "image": label}, f, indent=1)
+    print(f"[7] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(smi)
     print(json.dumps({"ok": True, "device": {

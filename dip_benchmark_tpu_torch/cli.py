@@ -1,7 +1,7 @@
-"""CLI: the reference's three-argument contract on the port's kernels.
+"""CLI: the reference's three-argument contract on the port.
 
-The port of ``dip_benchmark_tpu/cli.py`` for the kernel path, both data
-models: positional infile and outdir, rounds as a flag or a third
+The port of ``dip_benchmark_tpu/cli.py``, both data models and both
+paths: positional infile and outdir, rounds as a flag or a third
 positional, default 10000, the device gate (exit 4 when no CUDA device is
 found), the device banner, then the 14-row table (one more row each
 for ``--pipeline`` and ``--fuse``), the image dumps, an optional CSV row
@@ -15,9 +15,24 @@ level plus the don't-care mask of a threshold on a computed value for
         --dtype float32 --verify --pipeline
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
         --verify --fuse Convolution-5x5,Inversion,Convolution-3x3
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
+        --path library --verify --pipeline
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
+        --pipeline --exec
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
+        --pipeline --chained 20
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
+        --warm --profile <trace dir>
 
-Exit codes: 0 ok, 2 refused input (argparse errors, too small an image,
-a chain ``--fuse`` cannot run, a foreign CSV), 4 no device for --backend.
+The JAX package's paths "pallas" and "xla" are called "kernel" and
+"library" here. ``--exec`` prints each op's device time per application
+last: the slope over K of CUDA graphs of K launches, with its spread and
+whether the chain runs from L2 (``runtime/exec_timing.py``).
+
+Exit codes: 0 ok, 2 refused input (argparse errors, ``--exec`` or
+``--fuse`` with ``--chained``, ``--chained`` below 1 or with ``--verify``,
+too small an image, a chain ``--fuse`` cannot run, a foreign CSV), 4 no
+device for --backend.
 """
 
 from __future__ import annotations
@@ -29,7 +44,7 @@ from argparse import ArgumentParser, ArgumentTypeError
 import numpy as np
 
 from .harness import BenchmarkRunner
-from .runtime import DeviceGateError, describe_device, gate_backend
+from .runtime import DeviceGateError, aot, describe_device, gate_backend
 from .session import BenchmarkSession
 from .utils.image import is_image_file, load_image
 
@@ -62,6 +77,10 @@ def build_parser() -> ArgumentParser:
                              "like the SYCL/VisionGL backends)")
     parser.add_argument("--rounds", type=int, default=None,
                         help="Times to be executed, default 10000")
+    parser.add_argument("--path", choices=["kernel", "library"],
+                        default="kernel",
+                        help="Execution path: the hand-written CUDA kernels "
+                             "(default) or PyTorch library calls")
     parser.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
                         help="Device: the CUDA kernels (default) or their "
                              "plain PyTorch versions on the host")
@@ -73,7 +92,8 @@ def build_parser() -> ArgumentParser:
                         help="Also write/update a results.csv at this path")
     parser.add_argument("--tool", default=None,
                         help="Tool name for the CSV row (default H100-cuda, "
-                             "or CPU-torch with --backend cpu)")
+                             "H100-torch with --path library; CPU-torch, "
+                             "CPU-torch-library with --backend cpu)")
     parser.add_argument("--verify", action="store_true",
                         help="Check every op output against the oracle "
                              "before reporting (bit-exact for uint8; within "
@@ -88,6 +108,17 @@ def build_parser() -> ArgumentParser:
                              "column names, e.g. 'Grayscale,Threshold,"
                              "Erosion-3x3-Square'; Grayscale only first, "
                              "total radius at most 8")
+    parser.add_argument("--warm", action="store_true",
+                        help="Run every op of the table once, untimed, "
+                             "before timing (with --chained: capture its "
+                             "CUDA graphs), so the 'once' column shows a "
+                             "warm launch, unlike the reference contract")
+    parser.add_argument("--chained", type=int, default=None, metavar="K",
+                        help="Measurement-only mode: each round runs K "
+                             "chained applications of the op (one CUDA "
+                             "graph on the card) and rows report the time "
+                             "per application; no --verify, --fuse or "
+                             "--exec")
     parser.add_argument("--mem-rounds", type=int, default=None, metavar="N",
                         help="Round count override for the host-transfer "
                              "ops (Upload/Download) only; each row prints "
@@ -100,11 +131,56 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--stats", action="store_true",
                         help="Print per-op latency distribution "
                              "(min/p50/p95/max) under each row")
+    parser.add_argument("--exec", dest="exec_table", action="store_true",
+                        help="After the benchmark, print each op's device "
+                             "time per application: the least-squares "
+                             "slope over K of CUDA graphs of K launches "
+                             "(K = 10, 40, 160), with the spread of the "
+                             "slope and L2-warm or L2-cold. No --chained")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="Trace the run with torch.profiler (CPU, CUDA "
+                             "and Python calls) into DIR/trace.json, a "
+                             "Chrome trace")
     return parser
+
+
+def default_tool(device, path: str) -> str:
+    """The CSV tool name: one per device kind and path, so the rows of the
+    two paths do not overwrite each other."""
+    if device.type == "cuda":
+        return "H100-cuda" if path == "kernel" else "H100-torch"
+    return "CPU-torch" if path == "kernel" else "CPU-torch-library"
+
+
+def print_exec_table(rows) -> None:
+    """The reference's two cells (column, seconds per application), then
+    the slope b in µs, its spread (the least and most slope fitted to one
+    sample) and standard error, the fixed cost a, the K values and sample
+    count, and where the chain ran; a negative or unresolved slope is
+    printed as it is and marked."""
+    print("| device execution time per application (slope of T(K) over K) |")
+    for col, t in rows:
+        b, lo, hi, se, a = (1e6 * v for v in (
+            t.per_app_s, t.slope_min_s, t.slope_max_s, t.stderr_s,
+            t.fixed_s))
+        print(f"| {col:42s} | {t.per_app_s:10.6f}s | b {b:9.3f} us | "
+              f"spread {lo:9.3f}..{hi:9.3f} | se {se:7.3f} | a {a:9.2f} us "
+              f"| K {','.join(map(str, t.ks))} x{t.samples} | {t.where} |"
+              + (f" {t.mark} |" if t.mark else ""))
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    # Flag checks before the device gate, in the JAX CLI's order.
+    if args.exec_table and args.chained:
+        print("--exec is incompatible with --chained", file=sys.stderr)
+        return 2
+    if args.fuse and args.chained:
+        print("--fuse is incompatible with --chained", file=sys.stderr)
+        return 2
+    if args.chained is not None and args.chained < 1:
+        print(f"--chained needs K >= 1, got {args.chained}", file=sys.stderr)
+        return 2
     try:
         device = gate_backend(args.backend)
     except DeviceGateError as e:
@@ -114,16 +190,24 @@ def main(argv: list[str] | None = None) -> int:
 
     image, filename = args.infile
     try:
-        session = BenchmarkSession(image, device, dtype=args.dtype)
+        session = BenchmarkSession(image, device, dtype=args.dtype,
+                                   path=args.path)
     except ValueError as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 2
-    rounds = (args.rounds if args.rounds is not None
-              else args.rounds_pos if args.rounds_pos is not None
-              else 10000)
-    overrides = ({"Upload": args.mem_rounds, "Download": args.mem_rounds}
-                 if args.mem_rounds is not None else None)
-    table = session.operations(include_pipeline=args.pipeline)
+    if args.chained:
+        if args.verify:
+            print("--chained is measurement-only (no --verify)",
+                  file=sys.stderr)
+            return 2
+        try:
+            table = session.chained_operations(
+                args.chained, include_pipeline=args.pipeline)
+        except ValueError as e:
+            print(f"benchmark: {e}", file=sys.stderr)
+            return 2
+    else:
+        table = session.operations(include_pipeline=args.pipeline)
     if args.fuse:
         try:
             table.append(session.chain_operation(
@@ -131,22 +215,57 @@ def main(argv: list[str] | None = None) -> int:
         except ValueError as e:
             print(f"--fuse: {e}", file=sys.stderr)
             return 2
+    if args.warm:
+        aot.warm(table)
+    rounds = (args.rounds if args.rounds is not None
+              else args.rounds_pos if args.rounds_pos is not None
+              else 10000)
+    overrides = ({"Upload": args.mem_rounds, "Download": args.mem_rounds}
+                 if args.mem_rounds is not None else None)
     runner = BenchmarkRunner(table, rounds=rounds, stats=args.stats,
                              warmup=args.warmup, rounds_override=overrides)
-    runner.run(filename=filename, outdir=args.outdir,
-               verify_against=image if args.verify else None,
-               verify_ops=session.oracle_ops() if args.verify else None,
-               verify_atol=session.verify_atol)
+
+    def execute():
+        runner.run(filename=filename, outdir=args.outdir,
+                   verify_against=image if args.verify else None,
+                   verify_ops=session.oracle_ops() if args.verify else None,
+                   verify_atol=session.verify_atol)
+
+    if args.profile:
+        profile(execute, args.profile, device)
+    else:
+        execute()
     if args.csv:
         try:
-            runner.write_csv(args.csv, tool=args.tool or (
-                "H100-cuda" if device.type == "cuda" else "CPU-torch"))
+            runner.write_csv(args.csv, tool=args.tool or default_tool(
+                device, args.path))
         except ValueError as e:
             # write_csv refuses to rewrite a foreign-schema file; the rows
             # are already on stdout.
             print(f"--csv: {e}", file=sys.stderr)
             return 2
+    if args.exec_table:
+        print_exec_table(session.execution_table(
+            include_pipeline=args.pipeline))
     return 0
+
+
+def profile(execute, outdir: str, device) -> str:
+    """Run ``execute`` under torch.profiler, CPU and (on the card) CUDA
+    activity with the Python calls, and write the Chrome trace to
+    ``outdir/trace.json``; returns its path."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "trace.json")
+    with torch_profile(activities=activities, with_stack=True) as prof:
+        execute()
+    prof.export_chrome_trace(path)
+    return path
 
 
 if __name__ == "__main__":

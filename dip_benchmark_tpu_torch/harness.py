@@ -42,6 +42,9 @@ class Operation:
     fetch: Callable[[], np.ndarray]  # last result as uint8 HWC (untimed)
     # Ops whose run() itself transfers device->host; measured last.
     downloads: bool = field(default=False)
+    # One run() executes this many applications of the op (chained mode);
+    # the repeated-column time is divided by it to report per-application.
+    time_scale: int = 1
 
 
 class BenchmarkRunner:
@@ -91,12 +94,17 @@ class BenchmarkRunner:
             if self.stats:
                 time_once, time_rounds, dist = measure_time_stats(
                     op.run, n, warmup=warm)
-                self.op_stats[op.csv_column] = dist
+                # Per application like the row (one chained round runs
+                # op.time_scale applications).
+                self.op_stats[op.csv_column] = {
+                    k: ([x / op.time_scale for x in v]
+                        if isinstance(v, list) else v / op.time_scale)
+                    for k, v in dist.items()}
             else:
                 time_once, time_rounds = measure_time(op.run, n, warmup=warm)
             by_id[id(op)] = reporting.OpResult(
                 op.description, op.prefix, op.csv_column,
-                time_once, time_rounds, rounds=n)
+                time_once, time_rounds / op.time_scale, rounds=n)
         self.results = [by_id[id(op)] for op in self.operations]
 
         # Phase 2: report rows in canonical order, then fetch/save/verify

@@ -6,11 +6,11 @@ of same-sized images is baked into one ``(B, 3, Hp, pitch)`` planar tensor
 on the host and copied to the card. The fused pipeline runs the whole
 stack in one ``pipeline_u8`` launch (``blockIdx.z`` is the image), and a
 chain of ops (``--op A,B,...``, ``models/chain.py``) in one ``chain_u8``
-launch, on a layout whose halo is the chain's radius (at least 2); a
-single op of the matrix runs its kernel (``ops.OPS``) once per image of
-the stack. The JAX package runs single ops through its vmapped XLA path
-instead, which the port does not have yet: the outputs are the same
-function.
+launch, on a layout whose halo is the chain's radius (at least 2). A
+single op of the matrix runs on the library path, as the JAX package runs
+it vmapped on XLA: ``ops.library.IMAGE_OPS[op]`` once on the whole
+``(B, H, W, 3)`` stack, which is copied to the card as it is, with no
+layout bake and no crop.
 
     python -m dip_benchmark_tpu_torch.models.batch <indir> <outdir> \\
         [--op Fused-Pipeline | --op A,B,...] [--batch-size B] \\
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import spec
-from ..ops import OPS, kernels
+from ..ops import kernels, library
 from ..runtime import DeviceGateError, gate_backend
 from ..utils.image import (PlanarLayout, from_planar_padded, is_image_file,
                            load_image, make_layout, save_image,
@@ -49,8 +49,9 @@ COLUMNS = tuple(c for c in spec.CSV_COLUMNS
 class _Token(NamedTuple):
     """A dispatched batch. On the card, ``result`` is a pinned host tensor
     that is complete once ``done`` has fired; ``source`` keeps the pinned
-    input alive until its copy to the card has run."""
-    layout: PlanarLayout
+    input alive until its copy to the card has run. ``layout`` is None
+    for a library op, whose result is the ``(B, H, W, 3)`` stack."""
+    layout: PlanarLayout | None
     result: torch.Tensor
     done: torch.cuda.Event | None
     source: torch.Tensor
@@ -86,20 +87,27 @@ def _dispatch_batch(images: np.ndarray, csv_column,
     if isinstance(csv_column, (list, tuple)):
         cols = tuple(csv_column)
         layout = make_layout(h, w, pad=max(2, *chain.check_chain(cols)))
-    elif csv_column in COLUMNS:
+    elif csv_column == "Fused-Pipeline":
         layout = make_layout(h, w)
+    elif csv_column in COLUMNS:
+        layout = None
     else:
         raise ValueError(f"no batch op {csv_column!r}; one of {COLUMNS} "
                          f"or a list of them")
     on_card = device.type == "cuda"
-    source = stack_planar_padded(images, layout, pin_memory=on_card)
+    if layout is None:
+        source = torch.from_numpy(np.ascontiguousarray(images))
+        if on_card:
+            source = source.pin_memory()
+    else:
+        source = stack_planar_padded(images, layout, pin_memory=on_card)
     stack = source.to(device, non_blocking=True) if on_card else source
     if isinstance(csv_column, (list, tuple)):
         outs = _batched_chain(layout, cols, b)(stack)
     elif csv_column == "Fused-Pipeline":
         outs = fused_pipeline(stack)
     else:
-        outs = torch.stack([OPS[csv_column](planar) for planar in stack])
+        outs = library.IMAGE_OPS[csv_column](stack)
     if not on_card:
         return _Token(layout, outs, None, source)
     result = torch.empty(outs.shape, dtype=torch.uint8, pin_memory=True)
@@ -113,6 +121,8 @@ def _fetch_batch(token: _Token) -> np.ndarray:
     """Wait for a dispatched batch; the uint8 (B, H, W, 3) result."""
     if token.done is not None:
         token.done.synchronize()
+    if token.layout is None:
+        return token.result.numpy()
     return from_planar_padded(token.result, token.layout)
 
 

@@ -179,7 +179,8 @@ def test_process_batch_on_card(col):
     imgs = stack((37, 53, 3), seed=8)
     kernels.reset_launches()
     got = batch.process_batch(imgs, col)
+    # A single op of the matrix runs on the library path: no kernel.
     assert sum(kernels.LAUNCHES.values()) == (1 if col == "Fused-Pipeline"
-                                              else 3)
+                                              else 0)
     for b in range(3):
         np.testing.assert_array_equal(got[b], oracle.IMAGE_OPS[col](imgs[b]))

@@ -57,6 +57,10 @@ def test_port_imports_neither_jax_nor_triton():
         "import dip_benchmark_tpu_torch.ops.f32\n"
         "import dip_benchmark_tpu_torch.models.batch\n"
         "import dip_benchmark_tpu_torch.models.pipeline\n"
+        "import dip_benchmark_tpu_torch.ops.library\n"
+        "import dip_benchmark_tpu_torch.ops.library_f32\n"
+        "import dip_benchmark_tpu_torch.runtime.aot\n"
+        "import dip_benchmark_tpu_torch.runtime.exec_timing\n"
         "import dip_benchmark_tpu_torch.utils.testimage") == []
 
 

@@ -269,6 +269,37 @@ def test_harness_runs_like_jax_package(stats, tmp_path, capsys):
                                                     ("run", "Inversion")]
 
 
+@pytest.mark.parametrize("stats", [False, True])
+def test_harness_time_scale_like_jax_package(stats, monkeypatch, capsys):
+    # One chained round runs time_scale applications: both harnesses divide
+    # the repeated column and the latency distribution by it, and leave
+    # the once column whole. A clock that advances 1000 ns a read makes
+    # the times equal across the two.
+    results = {}
+    for name, module, clock in (("port", harness, timing),
+                                ("jax", jax_harness, jax_timing)):
+        ticks = iter(range(0, 10 ** 9, 1000))
+        monkeypatch.setattr(clock, "_clock_ns", lambda: next(ticks))
+        desc, prefix, _ = module.op_matrix_entry("Copy")
+        ops = [module.Operation(desc, prefix, "Copy", lambda: None,
+                                lambda: None, time_scale=4)]
+        runner = module.BenchmarkRunner(ops, rounds=3, stats=stats,
+                                        warmup=1)
+        runner.run()
+        r = runner.results[0]
+        results[name] = (r.time_once, r.time_rounds, r.rounds,
+                         runner.op_stats)
+    capsys.readouterr()
+    assert results["port"] == results["jax"]
+    once, rounds_s, n, op_stats = results["port"]
+    assert n == 3 and once == pytest.approx(1e-6)
+    # measure_time reads the clock around the loop, measure_time_stats
+    # after every round.
+    assert rounds_s == pytest.approx((1e-6 if stats else 1e-6 / 3) / 4)
+    if stats:
+        assert op_stats["Copy"]["p50"] == pytest.approx(1e-6 / 4)
+
+
 def test_harness_verify_reports_every_failure():
     img = random_image(7)
     outputs = {"Copy": img, "Inversion": img}  # Inversion is wrong
