@@ -63,7 +63,8 @@ csrc`` with nvcc, then, with no fallback anywhere:
    --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
    requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
    the pipeline nor the chain column and a launch of every uint8 kernel,
-   ``chain_u8`` included;
+   ``chain_u8`` included (from here to phase 4s every run's ``--verify``
+   shares each oracle answer for the benchmark image, ``shared_oracle``);
    [4f] the same with ``--dtype float32 --fuse C2``, zeroed again, and a
    launch of every float32 kernel, ``chain_f32`` included;
    [4l] the library path in each data model (``--path library --rounds 20
@@ -109,7 +110,24 @@ csrc`` with nvcc, then, with no fallback anywhere:
    ``window_u8_strip`` and ``pipeline_u8`` among its CUDA kernels, and
    ``benchmarks/h100/host_share.py`` splits each kernel's rounds into
    harness, wrapper, launch, allocation, synchronize and idle; then the
-   seconds the phases of this paragraph took, and the total;
+   seconds the phases of this paragraph took;
+   [4s] row sharding on the one card (every shard on cuda:0): each
+   kernel op of both models and the main-path chain on a
+   ``ShardedBenchmarkSession`` of 2, 3 and 4 shards of the benchmark
+   image (3 pads its rows) and of 8 shards of the 37x53 image, the counts
+   zeroed before one application that must launch the op's kernel once a
+   shard and nothing else, the valid values equal to the unsharded
+   session's (tolerance 0); then the CLI with the counts zeroed before
+   each run: ``--shards 1 --pipeline --exec`` (uint8), ``--shards 2`` and
+   ``4 --verify --pipeline --fuse`` C1 or C2 in each model (16 rows, every
+   kernel of the path launched a multiple of N times; ``--exec`` in
+   uint8, each slope resolved, each graph held to K direct calls),
+   ``--path library --shards 4 --verify --pipeline`` (no port kernel);
+   the rows' µs beside the unsharded ones (phases 4, 4f, 4x); the batch
+   tool with ``--shards 2 --data-shards 2`` on the pipeline and on
+   ``--op`` C3 over two full-size images and one other (every output
+   equal to the oracle, ``chain_u8`` once a shard of each batch); then
+   the phase's seconds and the total;
 7. prints ``{"kernels": [...]}`` (46 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -144,8 +162,10 @@ from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
 from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32, f32,
                                          kernels, window)
 from dip_benchmark_tpu_torch.ops.kernels import build
+from dip_benchmark_tpu_torch.parallel.session import ShardedBenchmarkSession
 from dip_benchmark_tpu_torch.runtime import exec_timing
-from dip_benchmark_tpu_torch.session import BenchmarkSession
+from dip_benchmark_tpu_torch.session import (PIPELINE_DESCRIPTION,
+                                             BenchmarkSession)
 from dip_benchmark_tpu_torch.utils.image import (from_planar_padded,
                                                  from_planar_padded_f32,
                                                  load_image, make_layout,
@@ -278,6 +298,8 @@ CHAINS = {
     "C3": ["Convolution-1x5+5x1", "Erosion-3x3-Cross"],
     "C4": ["Convolution-5x5"] * 4,
 }
+# The chain of the main path's --fuse in each data model.
+MAIN_CHAINS = {"uint8": CHAINS["C1"], "float32": CHAINS["C2"]}
 # Checked in phase 3c beside them, not timed: the luma alone, a chain with
 # no stage after it (an empty descriptor).
 CHECKED_CHAINS = {**CHAINS, "G": ["Grayscale"]}
@@ -1110,10 +1132,10 @@ def compare_f32_window_edges(rng) -> dict:
     return errs
 
 
-def drive_main_path(model: Model, img, label, fuse) -> dict:
+def drive_main_path(model: Model, img, label, fuse) -> tuple[dict, dict]:
     """Run the port's CLI once at full size with the pipeline row and the
     chain ``fuse`` in ``model``'s data model; return that run's launch
-    counts."""
+    counts and its rows' µs a round (``row_us``)."""
     suffix = "" if model.dtype == "uint8" else "-" + model.dtype
     dumps = fresh("dumps" + suffix)
     csv = fresh(f"results{suffix}.csv")
@@ -1142,7 +1164,7 @@ def drive_main_path(model: Model, img, label, fuse) -> dict:
     check(not unused, f"kernels not launched on the main path: {unused}")
     print(f"  main path ({model.dtype}, {label}): rc 0, 16 rows, 14 dumps, "
           f"--verify passed; launches {counts}")
-    return counts
+    return counts, row_us(text)
 
 
 def write_batch_inputs(images, other) -> tuple[str, dict]:
@@ -1211,13 +1233,15 @@ EXEC_HEADER = "| device execution time per application"
 CHAINED_K = 20
 
 
-def run_cli(args) -> tuple[int, str]:
-    """``cli.main(args)``'s exit code and standard output, echoed."""
+def run_cli(args, echo: bool = True) -> tuple[int, str]:
+    """``cli.main(args)``'s exit code and standard output, echoed unless
+    ``echo`` is False."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(args)
     text = buf.getvalue()
-    print(text, end="")
+    if echo:
+        print(text, end="")
     return rc, text
 
 
@@ -1225,6 +1249,22 @@ def table_rows(text: str) -> list[str]:
     """The benchmark table's rows (not the --exec rows)."""
     return [ln for ln in text.splitlines()
             if ln.startswith("| ") and "(once)" in ln]
+
+
+# The CLI's row descriptions -> CSV column (a chain row is "Fused-Chain").
+DESC_COL = {**{desc: col for desc, _, col in spec.OPERATION_MATRIX},
+            PIPELINE_DESCRIPTION: "Fused-Pipeline"}
+
+
+def row_us(text: str) -> dict:
+    """Column -> the table row's µs a round (the repeated column)."""
+    out = {}
+    for ln in table_rows(text):
+        cells = [c.strip() for c in ln.strip().strip("|").split("|")]
+        col = ("Fused-Chain" if cells[0].startswith("Fused Chain")
+               else DESC_COL[cells[0]])
+        out[col] = 1e6 * float(cells[2].split("s (")[0])
+    return out
 
 
 def exec_rows(text: str) -> list[dict]:
@@ -1442,6 +1482,235 @@ def drive_profile(img) -> list[dict]:
             + f" | {100 * r['idle']:.0f} %")
     return rows
 
+
+
+# [4s] Row sharding: the CLI's --shards on the card, and the shard counts
+# whose crops are held to the unsharded session in process (3 pads the
+# benchmark image's 2336 rows to 2337 + 1 + 3, the row-padding rule).
+SHARDS = (2, 4)
+SHARD_CHECKS = (2, 3, 4)
+SHARD_CHECKS_SMALL = (8,)  # the 37x53 image: 5-row shards, 3 rows padded
+
+
+def sharded_valid(blocks, pad: int, h: int, w: int) -> torch.Tensor:
+    """The valid ``(C, h, w)`` region of resident blocks, on the card."""
+    h_loc = blocks[0].shape[-2] - 2 * pad
+    return torch.cat([b[:, pad:pad + h_loc, pad:pad + w] for b in blocks],
+                     dim=1)[:, :h]
+
+
+def check_sharded_crops(models, images) -> int:
+    """[4s] Each kernel op of both models and the main-path chain on a
+    ShardedBenchmarkSession of n shards against the unsharded session:
+    the counts zeroed before one application, which must launch the op's
+    kernel exactly n times and nothing else; the valid region equal at
+    tolerance 0 (an op's values on the card, the chain's crop). Returns
+    how many were held."""
+    dev = torch.device("cuda")
+    held = 0
+    for label, img, ns in images:
+        h, w = img.shape[:2]
+        for model in models:
+            whole = BenchmarkSession(img, dev, dtype=model.dtype)
+            p = whole.layout.pad
+            want = {col: whole._ops[col](whole.planar_dev)[:, p:p + h,
+                                                            p:p + w]
+                    for col in DEVICE_COLS}
+            cols = MAIN_CHAINS[model.dtype]
+            chain_row = whole.chain_operation(cols)
+            chain_row.run()
+            want_chain = chain_row.fetch()
+            for n in ns:
+                sharded = ShardedBenchmarkSession(img, dev, n_devices=n,
+                                                  dtype=model.dtype)
+                for col in DEVICE_COLS:
+                    kernels.reset_launches()
+                    out = sharded._ops[col](sharded.blocks)
+                    torch.cuda.synchronize()
+                    kernel = model.kernels[col][0]
+                    check(kernels.LAUNCHES == {kernel: n},
+                          f"{model.dtype} {col} on {n} shards launched "
+                          f"{kernels.LAUNCHES}, want {{{kernel!r}: {n}}}")
+                    check(torch.equal(sharded_valid(out, p, h, w), want[col]),
+                          f"{model.dtype} {col} on {n} shards of {label} "
+                          f"differs from the unsharded session")
+                row = sharded.chain_operation(cols)
+                kernels.reset_launches()
+                row.run()
+                kernel = CHAIN_KERNELS[model.dtype][0]
+                check(kernels.LAUNCHES == {kernel: n},
+                      f"{model.dtype} chain on {n} shards launched "
+                      f"{kernels.LAUNCHES}")
+                check(np.array_equal(row.fetch(), want_chain),
+                      f"{model.dtype} chain on {n} shards of {label} "
+                      f"differs from the unsharded session")
+                held += len(DEVICE_COLS) + 1
+                del sharded, row
+            del whole, want
+            torch.cuda.empty_cache()
+        print(f"  {label}: n = {', '.join(map(str, ns))}, both models: "
+              f"every op and the chain one launch a shard, equal to the "
+              f"unsharded session (tolerance 0)")
+    return held
+
+
+def drive_sharded_cli(model: Model, img, n: int, extra) -> dict:
+    """[4s] The CLI with ``--shards n`` (and ``extra``), the counts zeroed
+    before: exit 0, every kernel it ran launched a multiple of n times;
+    the rows' µs, the --exec rows and the launches."""
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    rc, text = run_cli([save_benchmark_image(img),
+                        fresh(f"shards{n}-{model.dtype}"), "--shards", str(n),
+                        "--rounds", "20", "--mem-rounds", "5", "--dtype",
+                        model.dtype, *extra], echo=False)
+    counts = dict(kernels.LAUNCHES)
+    check(rc == 0, f"cli.main --shards {n} {extra} exited {rc}")
+    check(all(c % n == 0 for c in counts.values()),
+          f"--shards {n}: launch counts {counts} not a multiple of {n}")
+    rows = row_us(text)
+    run = {"n": n, "dtype": model.dtype, "args": list(extra), "rows": rows,
+           "launches": counts,
+           "exec": exec_rows(text) if "--exec" in extra else []}
+    print(f"  --shards {n} {model.dtype} {' '.join(extra)}: rc 0, "
+          f"{len(rows)} rows; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    run["seconds"] = time.perf_counter() - t0
+    return run
+
+
+def sharded_cli_runs(models, img) -> tuple[list, dict]:
+    """[4s] The CLI at --shards 1 (uint8, --exec), 2 and 4 (--verify
+    --pipeline --fuse, every kernel of the path launched; --exec in
+    uint8), and --path library --shards 4 --verify (no port kernel)."""
+    runs = [drive_sharded_cli(models[0], img, 1, ["--pipeline", "--exec"])]
+    for model in models:
+        fuse = ",".join(MAIN_CHAINS[model.dtype])
+        exec_ = ["--exec"] if model.dtype == "uint8" else []
+        for n in SHARDS:
+            run = drive_sharded_cli(model, img, n, [
+                "--verify", "--pipeline", "--fuse", fuse, *exec_])
+            check(len(run["rows"]) == 16, f"--shards {n}: "
+                  f"{len(run['rows'])} rows, want 16")
+            need = [k for k, *_ in model.kernels.values()]
+            need.append(CHAIN_KERNELS[model.dtype][0])
+            unused = [k for k in need if run["launches"].get(k, 0) < 1]
+            check(not unused, f"--shards {n} {model.dtype}: kernels not "
+                  f"launched {unused}")
+            if exec_:
+                check_exec_rows(run["exec"], DEVICE_COLS + ["Fused-Chain"],
+                                f"--shards {n} --exec")
+            runs.append(run)
+    library = drive_sharded_cli(models[0], img, 4, [
+        "--path", "library", "--verify", "--pipeline"])
+    check(not library["launches"] and len(library["rows"]) == 15,
+          f"--path library --shards 4: launches {library['launches']}, "
+          f"{len(library['rows'])} rows")
+    return runs, library
+
+
+@contextlib.contextmanager
+def shared_oracle(img):
+    """Each oracle answer for ``img`` computed once per data model and
+    column and shared by every CLI run's --verify inside the block
+    (phases 4 to 4s): the oracle is a function of the image alone, and at
+    full size it takes the card's host longer than the rest of a run. Any
+    other image is computed as usual."""
+    real = BenchmarkSession.oracle_ops
+    answers = {}
+
+    def oracle_ops(self):
+        def shared(key, fn):
+            def op(image):
+                if not np.array_equal(image, img):
+                    return fn(image)
+                if key not in answers:
+                    answers[key] = fn(image)
+                return answers[key]
+            return op
+        return {col: shared((self.dtype, col), fn)
+                for col, fn in real(self).items()}
+
+    BenchmarkSession.oracle_ops = oracle_ops
+    try:
+        yield
+    finally:
+        BenchmarkSession.oracle_ops = real
+
+
+def drive_sharded(models, img, label, small, main_us, exec_runs,
+                  smi) -> dict:
+    """[4s] Row sharding on the card: crops held in process, then the CLI
+    at --shards 1, 2, 4 (``--verify --pipeline --fuse`` at 2 and 4, each
+    kernel of the path launched; ``--exec`` in uint8), ``--path library
+    --shards 4 --verify``, and the batch tool on a 2x2 mesh."""
+    t0 = time.perf_counter()
+    held = check_sharded_crops(models, [
+        (label, img, SHARD_CHECKS), ("random 37x53", small,
+                                     SHARD_CHECKS_SMALL)])
+    print(f"  {held} sharded applications held; "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs, library = sharded_cli_runs(models, img)
+    for model in models:
+        print(f"  {model.dtype} CLI µs a round, --rounds 20 (unsharded: "
+              f"phase {'4' if model.dtype == 'uint8' else '4f'}, 50 rounds)"
+              + (" | --exec b µs (unsharded: phase 4x)"
+                 if model.dtype == "uint8" else "") + f" | {smi}")
+        mine = [r for r in runs if r["dtype"] == model.dtype]
+        ex = {r["col"]: r["b_us"] for r in exec_runs[model.dtype]["rows"]}
+        for col in ["Upload", "Download"] + DEVICE_COLS + ["Fused-Chain"]:
+            line = (f"    {col:24s} | {main_us[model.dtype][col]:9.1f} | "
+                    + " | ".join(f"N={r['n']} {r['rows'][col]:9.1f}"
+                                 if col in r["rows"] else f"N={r['n']} —"
+                                 for r in mine))
+            if model.dtype == "uint8" and col in ex:
+                b = {r["n"]: e["b_us"] for r in mine for e in r["exec"]
+                     if e["col"] == col}
+                line += f" || {ex[col]:8.2f} | " + " | ".join(
+                    f"N={k} {v:8.2f}" for k, v in sorted(b.items()))
+            print(line)
+    print(f"  library path, --shards 4 --verify: rc 0, 15 rows, no port "
+          f"kernel launched; µs " + ", ".join(
+              f"{c} {v:.1f}" for c, v in library["rows"].items()))
+    _, named = write_batch_inputs(
+        [img, np.ascontiguousarray(img[::-1])],
+        np.ascontiguousarray(img[:301, :517]))
+    batches = [drive_sharded_batch(named), drive_sharded_batch(
+        named, CHAINS["C3"])]
+    seconds = time.perf_counter() - t0
+    print(f"  [4s] took {seconds:.1f} s")
+    return {"held": held, "cli": runs, "library": library,
+            "batch": batches, "seconds": seconds}
+
+
+def drive_sharded_batch(named: dict, cols=None) -> dict:
+    """[4s] The batch tool with ``--shards 2 --data-shards 2`` on the
+    pipeline (the chain ``PIPELINE_COLS``) or the chain ``cols``: every
+    output equal to the oracle, ``chain_u8`` launched once a shard of each
+    shape group's one batch."""
+    indir = os.path.join(OUT, "batch_in")
+    outdir = fresh("batch_out_sharded")
+    op = [] if cols is None else ["--op", ",".join(cols)]
+    expect = (oracle.fused_pipeline if cols is None
+              else chain.chain_row_parts(cols)[2])
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = batch.main([indir, outdir, "--batch-size", "8", "--shards", "2",
+                         "--data-shards", "2", *op, "--backend", "cuda"])
+    counts = dict(kernels.LAUNCHES)
+    check(rc == 0, f"models.batch.main --shards 2 --data-shards 2 exited {rc}")
+    for name, img in named.items():
+        check(np.array_equal(load_image(os.path.join(outdir, name)),
+                             expect(img)),
+              f"sharded batch tool: {name} differs from the oracle")
+    groups = len({img.shape for img in named.values()})
+    check(counts == {"chain_u8": 4 * groups},
+          f"sharded batch tool launched {counts}, want chain_u8 "
+          f"{4 * groups} (4 shards x {groups} batches)")
+    what = "pipeline" if cols is None else "--op " + ",".join(cols)
+    print(f"  batch tool --shards 2 --data-shards 2 ({what}): rc 0, "
+          f"{len(named)} images equal to the oracle; launches {counts}")
+    return {"op": what, "launches": counts}
 
 
 def device_ms(fn, planar, n: int) -> list[float]:
@@ -1728,14 +1997,16 @@ def main() -> int:
             errs["float32"][col] = max(errs["float32"][col],
                                        f32_edge_errs[name])
 
-    counts = {}
-    fuse = {"uint8": CHAINS["C1"], "float32": CHAINS["C2"]}
+    counts, main_us = {}, {}
+    fuse = MAIN_CHAINS
+    oracle_memo = contextlib.ExitStack()
+    oracle_memo.enter_context(shared_oracle(img))
     for model, tag in ((u8, "4"), (f32, "4f")):
         print(f"[{tag}] main path: dip_benchmark_tpu_torch.cli.main "
               f"--dtype {model.dtype} --pipeline --fuse "
               f"{','.join(fuse[model.dtype])}")
-        counts[model.dtype] = drive_main_path(model, img, label,
-                                              fuse[model.dtype])
+        counts[model.dtype], main_us[model.dtype] = drive_main_path(
+            model, img, label, fuse[model.dtype])
     t_new = time.perf_counter()  # the phases added with --path and --exec
     library_exec = {}
     for model in (u8, f32):
@@ -1813,6 +2084,12 @@ def main() -> int:
     print(f"[4l 4x 4c 4p 5] the phases of --path, --exec, --chained, "
           f"--profile and the batch tool's library op took "
           f"{seconds_new:.1f} s")
+    print(f"[4s] row sharding: ShardedBenchmarkSession against the "
+          f"unsharded session, dip_benchmark_tpu_torch.cli.main --shards "
+          f"1, 2, 4, models.batch.main --shards 2 --data-shards 2 | {smi}")
+    sharded = drive_sharded([u8, f32], img, label, sizes[1][1], main_us,
+                            exec_runs, smi)
+    oracle_memo.close()
 
     want = 26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
     check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
@@ -1824,7 +2101,8 @@ def main() -> int:
                    op_batch_counts, "morphology_launches": morph_counts,
                    "main_path_launches": counts, "library_exec": library_exec,
                    "exec": exec_runs, "chained": chained,
-                   "host_share": host_split, "nvidia_smi": smi,
+                   "host_share": host_split, "sharded": sharded,
+                   "nvidia_smi": smi,
                    "image": label}, f, indent=1)
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -23,16 +23,22 @@ level plus the don't-care mask of a threshold on a computed value for
         --pipeline --chained 20
     python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
         --warm --profile <trace dir>
+    python -m dip_benchmark_tpu_torch.cli <image> <outdir> --rounds N \
+        --shards 4 --verify --pipeline [--fuse ...] [--exec]
 
 The JAX package's paths "pallas" and "xla" are called "kernel" and
 "library" here. ``--exec`` prints each op's device time per application
 last: the slope over K of CUDA graphs of K launches, with its spread and
 whether the chain runs from L2 (``runtime/exec_timing.py``).
+``--shards N`` runs the table with the image's rows sharded over N
+shards (``parallel/session.py``); with fewer CUDA devices than shards,
+several shards share a device.
 
 Exit codes: 0 ok, 2 refused input (argparse errors, ``--exec`` or
-``--fuse`` with ``--chained``, ``--chained`` below 1 or with ``--verify``,
-too small an image, a chain ``--fuse`` cannot run, a foreign CSV), 4 no
-device for --backend.
+``--fuse`` with ``--chained``, ``--chained`` below 1 or with ``--verify``
+or ``--shards``, ``--shards`` below 0, ``--exec`` on shards over several
+devices, too small an image or shards, a chain ``--fuse`` cannot run, a
+foreign CSV), 4 no device for --backend.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from argparse import ArgumentParser, ArgumentTypeError
 import numpy as np
 
 from .harness import BenchmarkRunner
+from .parallel.session import ShardedBenchmarkSession
 from .runtime import DeviceGateError, aot, describe_device, gate_backend
 from .session import BenchmarkSession
 from .utils.image import is_image_file, load_image
@@ -108,6 +115,11 @@ def build_parser() -> ArgumentParser:
                              "column names, e.g. 'Grayscale,Threshold,"
                              "Erosion-3x3-Square'; Grayscale only first, "
                              "total radius at most 8")
+    parser.add_argument("--shards", type=int, default=0, metavar="N",
+                        help="Run the op matrix with the image's rows "
+                             "sharded over N shards (halo rows exchanged "
+                             "between neighbours; several shards may share "
+                             "a CUDA device); 0 = unsharded")
     parser.add_argument("--warm", action="store_true",
                         help="Run every op of the table once, untimed, "
                              "before timing (with --chained: capture its "
@@ -181,6 +193,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.chained is not None and args.chained < 1:
         print(f"--chained needs K >= 1, got {args.chained}", file=sys.stderr)
         return 2
+    if args.shards < 0:
+        print(f"--shards needs N >= 0, got {args.shards}", file=sys.stderr)
+        return 2
     try:
         device = gate_backend(args.backend)
     except DeviceGateError as e:
@@ -190,15 +205,25 @@ def main(argv: list[str] | None = None) -> int:
 
     image, filename = args.infile
     try:
-        session = BenchmarkSession(image, device, dtype=args.dtype,
-                                   path=args.path)
+        if args.shards:
+            session = ShardedBenchmarkSession(
+                image, device, n_devices=args.shards, dtype=args.dtype,
+                path=args.path)
+        else:
+            session = BenchmarkSession(image, device, dtype=args.dtype,
+                                       path=args.path)
     except ValueError as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 2
+    if args.exec_table and args.shards and len(session.mesh.distinct) > 1:
+        print(f"--exec with --shards needs every shard on one device (a "
+              f"CUDA graph spans one); {args.shards} shards span "
+              f"{len(session.mesh.distinct)}", file=sys.stderr)
+        return 2
     if args.chained:
-        if args.verify:
-            print("--chained is measurement-only (no --verify)",
-                  file=sys.stderr)
+        if args.verify or args.shards:
+            print("--chained is measurement-only (no --verify, no "
+                  "--shards)", file=sys.stderr)
             return 2
         try:
             table = session.chained_operations(

@@ -12,13 +12,23 @@ it vmapped on XLA: ``ops.library.IMAGE_OPS[op]`` once on the whole
 ``(B, H, W, 3)`` stack, which is copied to the card as it is, with no
 layout bake and no crop.
 
+With ``--shards N --data-shards D`` a chain, and the pipeline as the
+chain ``PIPELINE_COLS``, runs on a ``(data, space)`` mesh of D x N shards
+(``parallel/``): the stack's images split over the data axis, their rows
+over the space axis, each shard one batched chain launch on its resident
+stack with the chain's halo refreshed from its neighbours. Rows are
+mirror-padded so the shards divide them and carry the chain's halo; the
+batch is padded to the data axis by repeating its last image; both are
+cropped on fetch.
+
     python -m dip_benchmark_tpu_torch.models.batch <indir> <outdir> \\
         [--op Fused-Pipeline | --op A,B,...] [--batch-size B] \\
-        [--backend cuda|cpu]
+        [--shards N [--data-shards D]] [--backend cuda|cpu]
 
 Exit codes: 0 ok, 2 refused arguments (an unknown op, a chain that
-``chain.check_chain`` refuses, ``--shards``), 4 no CUDA device for
-``--backend cuda``.
+``chain.check_chain`` refuses, ``--shards`` with a single op,
+``--data-shards`` without ``--shards``), 4 no CUDA device for ``--backend
+cuda``.
 """
 
 from __future__ import annotations
@@ -34,16 +44,22 @@ import torch
 
 from .. import spec
 from ..ops import kernels, library
+from ..parallel.halo import Mesh, make_mesh
+from ..parallel.kernel_ops import chain_row_padding, sharded_kernel_chain
 from ..runtime import DeviceGateError, gate_backend
-from ..utils.image import (PlanarLayout, from_planar_padded, is_image_file,
-                           load_image, make_layout, save_image,
-                           stack_planar_padded)
+from ..utils.image import (PlanarLayout, from_planar_padded,
+                           from_resident_planar, is_image_file, load_image,
+                           make_layout, save_image, stack_planar_padded,
+                           to_resident_planar)
 from . import chain
 from .pipeline import fused_pipeline
 
 # What --op accepts: the 12 device ops of the matrix and the pipeline.
 COLUMNS = tuple(c for c in spec.CSV_COLUMNS
                 if c not in ("Upload", "Download")) + ("Fused-Pipeline",)
+# The fused pipeline as a chain: what a mesh runs for it.
+PIPELINE_COLS = ("Grayscale", "Threshold", "Erosion-3x3-Square",
+                 "Gaussian-Blur-3x3")
 
 
 class _Token(NamedTuple):
@@ -55,6 +71,21 @@ class _Token(NamedTuple):
     result: torch.Tensor
     done: torch.cuda.Event | None
     source: torch.Tensor
+
+
+class _ShardedToken(NamedTuple):
+    """A batch dispatched over a mesh: the resident output blocks in mesh
+    order (pinned host copies on the card, with an event a device; the
+    pinned inputs kept alive until their copies ran), the per-shard
+    layout, and what the crop needs: the image height, the batch before
+    padding and the mesh."""
+    layout: PlanarLayout
+    results: tuple
+    done: tuple
+    sources: tuple
+    height: int
+    batch: int
+    mesh: Mesh
 
 
 def _check_stack(images: np.ndarray) -> None:
@@ -75,14 +106,75 @@ def _batched_chain(layout: PlanarLayout, cols: tuple[str, ...],
     return chain.make_fused_chain(layout, list(cols), batch=b)
 
 
-def _dispatch_batch(images: np.ndarray, csv_column,
-                    device: torch.device) -> _Token:
+@functools.lru_cache(maxsize=64)
+def _sharded_chain(mesh: Mesh, cols: tuple[str, ...], height: int,
+                   width: int, batch: int):
+    """One sharded chain per geometry (its descriptors go to each device
+    once): the op and the per-shard layout."""
+    return sharded_kernel_chain(mesh, list(cols), height, width, batch=batch)
+
+
+def _dispatch_sharded_chain(images: np.ndarray, cols: tuple[str, ...],
+                            mesh: Mesh) -> _ShardedToken:
+    """The chain over the mesh's ``(data, space)`` shards, each a batched
+    chain launch on its resident stack. Rows are mirror-padded by the
+    sharded session's rule (``kernel_ops.chain_row_padding``); the batch
+    is padded to the data axis by repeating the last image."""
+    b, h, w, _ = images.shape
+    n_space, n_data = mesh.n_space, mesh.n_data
+    pad = chain_row_padding(h, n_space, cols)
+    if pad > h:
+        raise ValueError(
+            f"{h}-row images are too small for a chain needing "
+            f"{max(2, *chain.check_chain(cols))}-row halos over {n_space} "
+            f"row shards")
+    bpad = (-b) % n_data
+    stack = images
+    if bpad:
+        stack = np.concatenate([stack, np.repeat(stack[-1:], bpad, axis=0)])
+    if pad:
+        stack = np.concatenate([stack, stack[:, h - pad:][:, ::-1]], axis=1)
+    op, layout = _sharded_chain(mesh, cols, h + pad, w, b + bpad)
+    resident = to_resident_planar(np.transpose(stack, (0, 3, 1, 2)), layout,
+                                  n_space)
+    b_loc = (b + bpad) // n_data
+    sources = tuple(resident[s][d * b_loc:(d + 1) * b_loc]
+                    for d in range(n_data) for s in range(n_space))
+    devices = mesh.flat
+    on_card = devices[0].type == "cuda"
+    if on_card:
+        sources = tuple(src.pin_memory() for src in sources)
+    outs = op(tuple(src.to(dev, non_blocking=True)
+                    for src, dev in zip(sources, devices)))
+    if not on_card:
+        return _ShardedToken(layout, outs, (), sources, h, b, mesh)
+    results = tuple(torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    for out in outs)
+    for result, out in zip(results, outs):
+        result.copy_(out, non_blocking=True)
+    done = []
+    for dev in mesh.distinct:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        done.append(event)
+    return _ShardedToken(layout, results, tuple(done), sources, h, b, mesh)
+
+
+def _dispatch_batch(images: np.ndarray, csv_column, device):
     """Queue one batch; returns a token for ``_fetch_batch``. On the card
     everything after the host's layout bake is asynchronous: the copy in
     from pinned memory, the launches and the copy out into pinned memory,
     so the caller can fetch and encode the previous batch meanwhile.
-    ``csv_column`` is one of ``COLUMNS`` or a list of columns, a chain."""
+    ``csv_column`` is one of ``COLUMNS`` or a list of columns, a chain.
+    ``device`` is a ``torch.device``, or a ``Mesh`` to shard a chain or
+    the pipeline over."""
     _check_stack(images)
+    if isinstance(device, Mesh):
+        if csv_column == "Fused-Pipeline":
+            return _dispatch_sharded_chain(images, PIPELINE_COLS, device)
+        if not isinstance(csv_column, (list, tuple)):
+            raise ValueError("--shards applies to chain/pipeline ops only")
+        return _dispatch_sharded_chain(images, tuple(csv_column), device)
     b, h, w, _ = images.shape
     if isinstance(csv_column, (list, tuple)):
         cols = tuple(csv_column)
@@ -117,8 +209,16 @@ def _dispatch_batch(images: np.ndarray, csv_column,
     return _Token(layout, result, done, source)
 
 
-def _fetch_batch(token: _Token) -> np.ndarray:
+def _fetch_batch(token) -> np.ndarray:
     """Wait for a dispatched batch; the uint8 (B, H, W, 3) result."""
+    if isinstance(token, _ShardedToken):
+        for event in token.done:
+            event.synchronize()
+        layout = token.layout
+        valid = np.concatenate([
+            from_resident_planar(row, layout, layout.height, token.height)
+            for row in token.mesh.rows(token.results)])[:token.batch]
+        return np.ascontiguousarray(np.transpose(valid, (0, 2, 3, 1)))
     if token.done is not None:
         token.done.synchronize()
     if token.layout is None:
@@ -132,11 +232,13 @@ def _device(device) -> torch.device:
 
 
 def process_batch(images: np.ndarray, csv_column="Fused-Pipeline",
-                  device=None) -> np.ndarray:
+                  device=None, mesh: Mesh | None = None) -> np.ndarray:
     """Run one op of ``COLUMNS``, or given a list of columns their fused
     chain, over a uint8 ``(B, H, W, 3)`` stack on ``device`` (default: the
-    card); returns the ``(B, H, W, 3)`` result."""
-    return _fetch_batch(_dispatch_batch(images, csv_column, _device(device)))
+    card), or a chain or the pipeline sharded over ``mesh``; returns the
+    ``(B, H, W, 3)`` result."""
+    target = mesh if mesh is not None else _device(device)
+    return _fetch_batch(_dispatch_batch(images, csv_column, target))
 
 
 def _probe_shape(path: str) -> tuple:
@@ -153,16 +255,17 @@ def _probe_shape(path: str) -> tuple:
 
 def process_directory(indir: str, outdir: str,
                       csv_column="Fused-Pipeline",
-                      batch_size: int = 8, device=None) -> list[str]:
+                      batch_size: int = 8, device=None,
+                      mesh: Mesh | None = None) -> list[str]:
     """Process every image in ``indir`` into ``outdir`` under the same
     name, grouping same-shaped images into batches of up to
-    ``batch_size``; ``csv_column`` as for ``process_batch``. Returns the
-    written paths.
+    ``batch_size``; ``csv_column``, ``device`` and ``mesh`` as for
+    ``process_batch``. Returns the written paths.
 
     Serving-style overlap: chunk n is dispatched before chunk n - 1 is
     fetched and encoded, so host work on one chunk runs while the card
     works on the next."""
-    device = _device(device)
+    device = mesh if mesh is not None else _device(device)
     os.makedirs(outdir, exist_ok=True)
     by_shape: dict[tuple, list[tuple[str, str]]] = {}
     for name in sorted(os.listdir(indir)):
@@ -213,19 +316,18 @@ def main(argv: list[str] | None = None) -> int:
                         "(models/chain.py rules apply)")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--shards", type=int, default=0, metavar="N",
-                   help="row sharding, not ported yet: any N > 0 exits 2")
+                   help="Shard image rows over N shards (chain/pipeline "
+                        "ops only: the batched fused chain then runs on a "
+                        "(data, space) mesh, halo rows refreshed between "
+                        "neighbours; several shards may share a device)")
     p.add_argument("--data-shards", type=int, default=1, metavar="D",
-                   help="batch sharding, not ported yet: any D other than "
-                        "1 exits 2")
+                   help="Also shard the batch over D (needs --shards; N*D "
+                        "shards in all)")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
                    help="Device: the CUDA kernels (default) or their plain "
                         "PyTorch versions on the host")
     args = p.parse_args(argv)
 
-    if args.shards or args.data_shards != 1:
-        print("--shards/--data-shards: row sharding is not ported yet",
-              file=sys.stderr)
-        return 2
     op = args.op
     if "," in op:
         op = [c.strip() for c in op.split(",") if c.strip()]
@@ -242,6 +344,18 @@ def main(argv: list[str] | None = None) -> int:
         print(f"--batch-size needs B >= 1, got {args.batch_size}",
               file=sys.stderr)
         return 2
+    if args.shards < 0 or args.data_shards < 1:
+        print(f"--shards needs N >= 0 and --data-shards D >= 1, got "
+              f"{args.shards}, {args.data_shards}", file=sys.stderr)
+        return 2
+    if args.shards:
+        if not (isinstance(op, list) or op == "Fused-Pipeline"):
+            print("--shards applies to chain/pipeline ops only",
+                  file=sys.stderr)
+            return 2
+    elif args.data_shards != 1:
+        print("--data-shards needs --shards", file=sys.stderr)
+        return 2
     try:
         device = gate_backend(args.backend)
     except DeviceGateError as e:
@@ -249,8 +363,10 @@ def main(argv: list[str] | None = None) -> int:
         return 4
     if device.type == "cuda":
         kernels.load()  # build before the first batch: set-up, not serving
+    mesh = (make_mesh(args.shards, args.data_shards, backend=args.backend)
+            if args.shards else None)
     written = process_directory(args.indir, args.outdir, op,
-                                args.batch_size, device=device)
+                                args.batch_size, device=device, mesh=mesh)
     print(f"Processed {len(written)} images -> {args.outdir}")
     return 0
 

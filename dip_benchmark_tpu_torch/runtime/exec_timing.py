@@ -28,6 +28,11 @@ must equal K direct applications (tolerance 0) before it is timed.
 Whether the chain runs from L2 is a matter of size: an application reads
 its input and writes its output, and when both fit the card's L2 the next
 application finds its input there ("L2-warm"); otherwise "L2-cold".
+
+An op's input may also be a tuple of tensors, a sharded value
+(``parallel/``): one application is then the whole sharded op, every
+shard's refresh and launch, captured into one graph. Its tensors must
+all be on one device.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -97,11 +102,31 @@ def fit_times(ks, times: list[list[float]], where: str) -> ExecTime:
                     len(times), where)
 
 
-def l2_residency(x: torch.Tensor) -> str:
+def tensors(x) -> tuple[torch.Tensor, ...]:
+    """An op's input or output as a tuple of tensors: ``x`` itself when it
+    is a tuple (a sharded value), else ``(x,)``."""
+    return x if isinstance(x, tuple) else (x,)
+
+
+def same(a, b) -> bool:
+    """True when two inputs or outputs hold equal tensors (tolerance 0)."""
+    ta, tb = tensors(a), tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(p, q)
+                                      for p, q in zip(ta, tb))
+
+
+def shapes(x) -> tuple:
+    """The (shape, dtype, device) of each tensor of ``x``."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors(x))
+
+
+def l2_residency(x) -> str:
     """Return "L2-warm" when an application's input and output together
     fit the L2 of ``x``'s card, else "L2-cold"."""
-    l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
-    return "L2-warm" if 2 * x.numel() * x.element_size() <= l2 else "L2-cold"
+    parts = tensors(x)
+    l2 = torch.cuda.get_device_properties(parts[0].device).L2_cache_size
+    size = sum(t.numel() * t.element_size() for t in parts)
+    return "L2-warm" if 2 * size <= l2 else "L2-cold"
 
 
 def chain_direct(op: Callable, x: torch.Tensor, k: int) -> torch.Tensor:
@@ -113,33 +138,38 @@ def chain_direct(op: Callable, x: torch.Tensor, k: int) -> torch.Tensor:
 
 class GraphCache:
     """CUDA graphs of K chained applications of an op, keyed by (op name,
-    input shape, dtype, K). Every graph of one input shape and dtype reads
-    one static input tensor; ``replay`` copies the caller's tensor into it
-    when it is another tensor, or was written since."""
+    input shapes, dtypes, K). Every graph of one input shape and dtype
+    reads one static input (a tensor, or a tuple of them); ``replay``
+    copies the caller's input into it when it is another tensor, or was
+    written since."""
 
     def __init__(self):
-        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph,
-                                        torch.Tensor]] = {}
+        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, Any]] = {}
         self._inputs: dict[tuple, list] = {}
 
-    def _static_input(self, x: torch.Tensor) -> torch.Tensor:
-        key = (tuple(x.shape), x.dtype, x.device)
+    def _static_input(self, x):
+        parts = tensors(x)
+        versions = tuple(t._version for t in parts)
+        key = shapes(x)
         entry = self._inputs.get(key)
         if entry is None:
-            entry = self._inputs[key] = [x.clone(), x, x._version]
-        elif entry[1] is not x or entry[2] != x._version:
-            entry[0].copy_(x)
-            entry[1:] = [x, x._version]
-        return entry[0]
+            entry = self._inputs[key] = [tuple(t.clone() for t in parts),
+                                         parts, versions]
+        elif (any(a is not b for a, b in zip(entry[1], parts))
+              or entry[2] != versions):
+            for static, t in zip(entry[0], parts):
+                static.copy_(t)
+            entry[1:] = [parts, versions]
+        return entry[0] if isinstance(x, tuple) else entry[0][0]
 
-    def get(self, name: str, op: Callable, x: torch.Tensor,
-            k: int) -> tuple[torch.cuda.CUDAGraph, torch.Tensor]:
+    def get(self, name: str, op: Callable, x,
+            k: int) -> tuple[torch.cuda.CUDAGraph, Any]:
         """The graph of ``k`` applications of ``op`` on ``x``'s shape and
-        its output tensor, captured at the first request. The caller has
-        run ``op`` once outside capture (the kernel library is built and
+        its output, captured at the first request. The caller has run
+        ``op`` once outside capture (the kernel library is built and
         every per-op constant is on the card by then)."""
         static = self._static_input(x)
-        key = (name, tuple(x.shape), x.dtype, k)
+        key = (name, shapes(x), k)
         if key not in self._graphs:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
@@ -147,16 +177,15 @@ class GraphCache:
             self._graphs[key] = (graph, out)
         return self._graphs[key]
 
-    def replay(self, name: str, op: Callable, x: torch.Tensor,
-               k: int) -> torch.Tensor:
+    def replay(self, name: str, op: Callable, x, k: int):
         """Replay the ``k``-application graph on ``x``; returns its output
-        tensor (complete once the stream reaches it)."""
+        (complete once the stream reaches it)."""
         graph, out = self.get(name, op, x, k)
         graph.replay()
         return out
 
 
-def _host_times(op: Callable, x: torch.Tensor, ks,
+def _host_times(op: Callable, x, ks,
                 samples: int) -> list[list[float]]:
     chain_direct(op, x, 1)
     times = []
@@ -170,12 +199,12 @@ def _host_times(op: Callable, x: torch.Tensor, ks,
     return times
 
 
-def _device_times(name: str, op: Callable, x: torch.Tensor, ks,
+def _device_times(name: str, op: Callable, x, ks,
                   samples: int, graphs: GraphCache) -> list[list[float]]:
     for k in ks:
         direct = chain_direct(op, x, k)
         out = graphs.replay(name, op, x, k)
-        if not torch.equal(out, direct):
+        if not same(out, direct):
             raise RuntimeError(
                 f"{name}: the CUDA graph of {k} applications differs from "
                 f"{k} direct calls")
@@ -191,18 +220,18 @@ def _device_times(name: str, op: Callable, x: torch.Tensor, ks,
             start.record()
             graph.replay()
             end.record()
-    torch.cuda.synchronize(x.device)
+    torch.cuda.synchronize(tensors(x)[0].device)
     return [[1e-3 * s.elapsed_time(e) for s, e in sample]
             for sample in marks]
 
 
-def execution_time(name: str, op: Callable, x: torch.Tensor, ks=KS,
+def execution_time(name: str, op: Callable, x, ks=KS,
                    samples: int = SAMPLES) -> ExecTime:
     """Seconds of one application of ``op`` on ``x`` (a shape-preserving
-    op), from runs of each K in ``ks``: CUDA graphs timed by events on the
-    card (``name`` keys them; they are dropped on return), the host clock
-    on the CPU."""
-    if x.device.type == "cpu":
+    op of a tensor or of a tuple of them), from runs of each K in ``ks``:
+    CUDA graphs timed by events on the card (``name`` keys them; they are
+    dropped on return), the host clock on the CPU."""
+    if tensors(x)[0].device.type == "cpu":
         return fit_times(ks, _host_times(op, x, ks, samples), "host")
     times = _device_times(name, op, x, ks, samples, GraphCache())
     return fit_times(ks, times, l2_residency(x))

@@ -35,10 +35,25 @@ from .models import chain
 from .ops import OPS, OPS_F32, kernels, library, library_f32
 from .runtime import synchronize
 from .runtime.exec_timing import (KS, SAMPLES, ExecTime, GraphCache,
-                                  chain_direct, execution_time)
+                                  chain_direct, execution_time, shapes)
 from .utils.image import (check_uint8_hwc, from_planar_padded,
                           from_planar_padded_f32, make_layout,
                           to_planar_padded, to_planar_padded_f32)
+
+
+def check_session_args(host_image: np.ndarray, dtype: str,
+                       path: str) -> None:
+    """A session's input contract, as ValueErrors: a uint8 HWC RGB image
+    of at least 5x5 (the 5x5 ops' mirrors), a known data model and path."""
+    check_uint8_hwc(host_image)
+    if min(host_image.shape[:2]) < 5:
+        raise ValueError(
+            f"image must be at least 5x5 for the 5x5 convolution ops, "
+            f"got {host_image.shape[0]}x{host_image.shape[1]}")
+    if dtype not in ("uint8", "float32"):
+        raise ValueError(f"Unknown dtype: {dtype!r}")
+    if path not in ("kernel", "library"):
+        raise ValueError(f"Unknown path: {path!r} (want kernel|library)")
 
 
 class BenchmarkSession:
@@ -58,15 +73,7 @@ class BenchmarkSession:
 
     def __init__(self, host_image: np.ndarray, device: torch.device,
                  dtype: str = "uint8", path: str = "kernel"):
-        check_uint8_hwc(host_image)
-        if min(host_image.shape[:2]) < 5:
-            raise ValueError(
-                f"image must be at least 5x5 for the 5x5 convolution ops, "
-                f"got {host_image.shape[0]}x{host_image.shape[1]}")
-        if dtype not in ("uint8", "float32"):
-            raise ValueError(f"Unknown dtype: {dtype!r}")
-        if path not in ("kernel", "library"):
-            raise ValueError(f"Unknown path: {path!r} (want kernel|library)")
+        check_session_args(host_image, dtype, path)
         self.host_image = np.ascontiguousarray(host_image)
         self.dtype = dtype
         self.path = path
@@ -136,12 +143,16 @@ class BenchmarkSession:
         image (uint8) or the unpadded f32 CHW array."""
         return self.planar_dev if self.path == "kernel" else self.image_dev
 
+    def _sync(self) -> None:
+        """Wait for the session's device: the end of every timed round."""
+        synchronize(self.device)
+
     def _make_run(self, fn: Callable) -> Callable[[], None]:
         src = self._device_input()
 
         def run():
             self._sample = fn(src)
-            synchronize(self.device)
+            self._sync()
         return run
 
     def operations(self, include_pipeline: bool = False) -> list[Operation]:
@@ -176,7 +187,7 @@ class BenchmarkSession:
         shape is kept. This is also each op's first, untimed launch."""
         src = self._device_input()
         banded = [col for col in cols
-                  if self._ops[col](src).shape != src.shape]
+                  if shapes(self._ops[col](src)) != shapes(src)]
         if banded:
             raise ValueError(
                 f"--chained and --exec need shape-preserving ops; {banded} "

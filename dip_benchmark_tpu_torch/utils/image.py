@@ -227,3 +227,66 @@ def from_jax_planar(arr: np.ndarray, jax_layout,
             f"port's {layout.shape} window")
     return torch.from_numpy(np.ascontiguousarray(
         arr[..., y0:y0 + layout.padded_height, x0:x0 + layout.pitch]))
+
+
+# -- the resident sharded layout -------------------------------------------
+
+def to_resident_planar(planar: np.ndarray, layout: PlanarLayout,
+                       n: int) -> tuple[torch.Tensor, ...]:
+    """``(..., H, W)`` -> n CPU tensors ``(..., Hp, pitch)``: the resident
+    sharded layout of ``parallel/``, one block per row shard.
+
+    Shard i holds rows ``[i * h_loc, (i + 1) * h_loc)`` (``h_loc = H / n``,
+    ``layout`` the per-shard layout); its block is the port's bake of those
+    rows: ``pad`` rows above and below from the neighbouring shards, or by
+    the spec's mirror rule past the image's edges, and every column as
+    ``mirror_cols`` fills it. Each block is contiguous, so the kernels run
+    on it as they run on an unsharded planar. Leading dims (channels, a
+    batch) and the dtype pass through; n = 1 gives ``to_planar_padded``'s
+    buffer."""
+    h, w = planar.shape[-2:]
+    if h % n:
+        raise ValueError(f"{n} shards must divide height {h}")
+    h_loc = h // n
+    if (layout.height, layout.width) != (h_loc, w):
+        raise ValueError(f"{layout} is not the per-shard layout of {n} "
+                         f"shards of {h}x{w}")
+    xs = mirror_cols(layout)
+    rows = np.arange(layout.padded_height) - layout.pad
+    return tuple(torch.from_numpy(np.ascontiguousarray(planar[
+        ..., np.clip(spec.mirror_index(i * h_loc + rows, h), 0, h - 1)[:, None],
+        xs[None, :]])) for i in range(n))
+
+
+def from_resident_planar(blocks, layout: PlanarLayout, h_loc: int,
+                         height: int | None = None) -> np.ndarray:
+    """The blocks of ``to_resident_planar`` (or of an op's output), on any
+    device -> the ``(..., height, W)`` host array of their valid rows and
+    columns, shard after shard; ``height`` crops a session's row padding
+    (default: all ``len(blocks) * h_loc`` rows)."""
+    if h_loc != layout.height:
+        # h_loc is redundant with the layout; a mismatch would silently
+        # return wrongly cropped rows.
+        raise ValueError(f"h_loc {h_loc} != layout.height {layout.height}")
+    p = layout.pad
+    valid = np.concatenate([b[..., p:p + h_loc, p:p + layout.width]
+                            .cpu().numpy() for b in blocks], axis=-2)
+    return np.ascontiguousarray(valid[..., :height, :])
+
+
+def from_jax_resident(arr: np.ndarray, jax_layout, n: int,
+                      pad: int = DEFAULT_HALO) -> tuple[torch.Tensor, ...]:
+    """Re-cut the JAX package's resident array into the port's blocks.
+
+    ``arr`` is a ``(..., C, n * Hp, Wp)`` array from
+    ``dip_benchmark_tpu.utils.image.to_resident_planar`` (or a sharded op's
+    output) on the per-shard ``jax_layout``: n padded blocks stacked along
+    the rows. Both packages bake a block by the same rules relative to the
+    shard's first row, so each port block is ``from_jax_planar`` of the
+    JAX block."""
+    hp = jax_layout.padded_height
+    if arr.shape[-2] != n * hp:
+        raise ValueError(f"JAX resident {arr.shape} is not {n} blocks of "
+                         f"{hp} rows")
+    return tuple(from_jax_planar(arr[..., i * hp:(i + 1) * hp, :],
+                                 jax_layout, pad) for i in range(n))

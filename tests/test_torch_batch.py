@@ -149,8 +149,9 @@ def test_main_single_op(tmp_path):
 
 
 @pytest.mark.parametrize("args, says", [
-    (["--shards", "2"], "row sharding is not ported yet"),
-    (["--data-shards", "2"], "row sharding is not ported yet"),
+    (["--shards", "2", "--op", "Grayscale"],
+     "--shards applies to chain/pipeline ops only"),
+    (["--data-shards", "2"], "--data-shards needs --shards"),
     (["--op", "Inversion,Grayscale"], "--op chain"),
     (["--op", "Upload"], "--op must be one of"),
     (["--batch-size", "0"], "--batch-size"),

@@ -14,6 +14,8 @@ import torch
 from dip_benchmark_tpu_torch import cli
 from dip_benchmark_tpu_torch.ops import OPS, OPS_F32, kernels
 from dip_benchmark_tpu_torch.ops.kernels import build
+from dip_benchmark_tpu_torch.parallel import make_mesh
+from dip_benchmark_tpu_torch.runtime import DeviceGateError
 from dip_benchmark_tpu_torch.utils.image import (make_layout, save_image,
                                                  to_planar_padded,
                                                  to_planar_padded_f32)
@@ -61,6 +63,11 @@ def test_port_imports_neither_jax_nor_triton():
         "import dip_benchmark_tpu_torch.ops.library_f32\n"
         "import dip_benchmark_tpu_torch.runtime.aot\n"
         "import dip_benchmark_tpu_torch.runtime.exec_timing\n"
+        "import dip_benchmark_tpu_torch.parallel\n"
+        "import dip_benchmark_tpu_torch.parallel.halo\n"
+        "import dip_benchmark_tpu_torch.parallel.ops\n"
+        "import dip_benchmark_tpu_torch.parallel.kernel_ops\n"
+        "import dip_benchmark_tpu_torch.parallel.session\n"
         "import dip_benchmark_tpu_torch.utils.testimage") == []
 
 
@@ -68,6 +75,9 @@ def test_no_port_file_imports_the_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")]
     assert len(files) >= 20
+    assert {"halo.py", "ops.py", "kernel_ops.py", "session.py"} <= {
+        os.path.basename(f) for f in files
+        if os.path.basename(os.path.dirname(f)) == "parallel"}
     bad = {os.path.relpath(f, REPO): m for f in files
            for m in imported_modules(f) if m.split(".")[0] in FORBIDDEN}
     assert not bad, bad
@@ -199,6 +209,37 @@ def test_cli_cuda_backend_without_device_exits_4(tmp_path, small_image,
     save_image(path, small_image)
     assert cli.main([path, str(tmp_path / "out"), "--rounds", "1",
                      "--backend", "cuda"]) == 4
+
+
+@pytest.mark.parametrize("count,n_space,n_data", [(1, 4, 1), (1, 2, 2),
+                                                  (2, 3, 1), (4, 2, 3)])
+def test_cuda_mesh_never_places_a_shard_on_the_cpu(count, n_space, n_data,
+                                                   monkeypatch, capsys):
+    # Shards are dealt round-robin over the CUDA devices, however few.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    mesh = make_mesh(n_space, n_data, backend="cuda")
+    assert (mesh.n_space, mesh.n_data) == (n_space, n_data)
+    assert [d for d in mesh.flat] == [torch.device("cuda", i % count)
+                                      for i in range(n_space * n_data)]
+    assert ("NOTE:" in capsys.readouterr().err) == (count < n_space * n_data)
+    assert make_mesh(n_space, n_data, backend="cpu").distinct == (
+        torch.device("cpu"),)
+
+
+def test_cuda_mesh_without_a_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceGateError, match="No CUDA device"):
+        make_mesh(2, backend="cuda")
+
+
+def test_sharded_cli_on_cuda_without_a_device_exits_4(tmp_path, small_image,
+                                                     monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "small.png")
+    save_image(path, small_image)
+    assert cli.main([path, str(tmp_path / "out"), "--rounds", "1",
+                     "--shards", "2"]) == 4
 
 
 def test_cli_refuses_tiny_image(tmp_path):
