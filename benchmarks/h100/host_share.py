@@ -8,7 +8,10 @@ Reads the Chrome trace that ``python -m dip_benchmark_tpu_torch.cli ...
 Python calls) and splits every timed round of the kernel path, one call of
 a session ``run`` closure and the harness code until the next, into:
 
-- kernel: the device time of the kernels it launched (CUDA activity);
+- kernel: the device time of the kernels it launched (CUDA activity; a
+  kernel belongs to the round in which its ``cudaLaunchKernel`` call ran,
+  matched by the trace's correlation id, so the card's clock is never
+  compared with the host's to place it);
 - harness: from the end of one ``run`` to the start of the next in the
   same op's loop (``utils/timing.measure_time``);
 - wrapper: the op's Python call without its output allocation and without
@@ -18,7 +21,9 @@ a session ``run`` closure and the harness code until the next, into:
 - alloc: the ``aten::empty*`` calls inside the round (the output);
 - sync wait: the part of ``torch.cuda.synchronize`` spent while the
   round's kernel still ran; sync own: the rest of it, after the kernel
-  ended;
+  ended. These two alone compare the card's clock with the host's:
+  ``clock_skew`` says how far the trace's conversion is off (a kernel
+  cannot start before its launch call);
 - idle: 1 - kernel / round.
 
 Every part is a median over the rounds of one kernel. The Python tracer
@@ -59,6 +64,13 @@ def _inside(events, t0: float, t1: float):
     return [e for e in events if t0 <= e["ts"] and e["ts"] + e["dur"] <= t1]
 
 
+def _launch_times(events) -> dict:
+    """The host timestamp of every CUDA runtime call by correlation id."""
+    return {e["args"]["correlation"]: e["ts"] for e in events
+            if e.get("cat") == "cuda_runtime"
+            and "correlation" in e.get("args", {})}
+
+
 def _top_level(events):
     """The events not nested in another of ``events`` (one thread)."""
     out, end = [], float("-inf")
@@ -80,10 +92,12 @@ def rounds(trace: dict) -> list[dict]:
     launches = [e for e in py if LAUNCH.search(e["name"])]
     cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
     gpu = [e for e in events if e.get("cat") == "kernel"]
+    launched = _launch_times(events)
     out = []
     for r in runs:
         t0, t1 = r["ts"], r["ts"] + r["dur"]
-        kern = [k for k in gpu if t0 <= k["ts"] <= t1]
+        kern = [k for k in gpu if t0 <= launched.get(
+            k["args"].get("correlation"), -1.0) <= t1]
         if not kern:
             continue
         sync = max(_inside(syncs, t0, t1), key=lambda e: e["ts"])
@@ -107,6 +121,18 @@ def rounds(trace: dict) -> list[dict]:
             a["round"] = b["ts"] - a["ts"]
             a["harness"] = b["ts"] - a["end"]
     return out
+
+
+def clock_skew(trace: dict) -> tuple[float, float, float]:
+    """Min, median and max µs from each kernel's launch call to the
+    kernel's start, as the trace's clocks put them; a negative value is
+    the conversion's error, not a time."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    launched = _launch_times(events)
+    gaps = sorted(e["ts"] - launched[e["args"]["correlation"]]
+                  for e in events if e.get("cat") == "kernel"
+                  and e["args"].get("correlation") in launched)
+    return gaps[0], statistics.median(gaps), gaps[-1]
 
 
 PARTS = ("round", "device", "harness", "wrapper", "launch", "alloc",
@@ -135,6 +161,10 @@ def main(argv: list[str]) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     rows = split(argv[0])
+    with open(argv[0]) as f:
+        skew = clock_skew(json.load(f))
+    print("kernel start - its launch call, trace clocks (min, median, "
+          "max µs): " + ", ".join(f"{v:.1f}" for v in skew))
     print("| kernel | rounds | round µs | kernel µs | harness | wrapper | "
           "launch | alloc | sync wait | sync own | idle |")
     for r in rows:

@@ -8,6 +8,11 @@ csrc`` with nvcc, then, with no fallback anywhere:
 
 1. prints the device banner and ``nvidia-smi``'s name and power limit;
 2. builds the kernels and prints the build time;
+   [8n] builds the native C++ oracle (``dip_benchmark_tpu_torch/native``;
+   a failed build fails the run: the card's nvcc needs a host C++
+   compiler anyway), holds each of its 13 columns to the NumPy oracle
+   with ``array_equal`` on the benchmark image, and prints both oracles'
+   host times per column and in total beside ``os.cpu_count()``;
 3. runs each of the 13 on-device ops of the uint8 model (the 12 of the
    matrix and the fused pipeline) through its kernel and through its plain
    PyTorch version on the card, on the 3504x2336 benchmark image and on
@@ -127,7 +132,15 @@ csrc`` with nvcc, then, with no fallback anywhere:
    tool with ``--shards 2 --data-shards 2`` on the pipeline and on
    ``--op`` C3 over two full-size images and one other (every output
    equal to the oracle, ``chain_u8`` once a shard of each batch); then
-   the phase's seconds and the total;
+   the phase's seconds; every uint8 ``--verify`` from phase 4 to here must
+   have used the native oracle;
+   [8w] the CLI on a 128x60000 synthetic fundus (``WIDE_SHAPE``), past
+   the JAX package's single-buffer width envelope in both data models,
+   with ``--rounds 2 --verify --pipeline --fuse`` C1 (uint8) or C2
+   (float32), and in uint8 again with ``--shards 2``: exit 0, 16 rows,
+   every kernel of the path launched, each row's µs printed; then the
+   oracle that phase 4's ``--verify`` used, the oracles' times and the
+   total;
 7. prints ``{"kernels": [...]}`` (46 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -155,7 +168,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dip_benchmark_tpu_torch import cli, oracle, oracle_f32, spec
+from dip_benchmark_tpu_torch import cli, native, oracle, oracle_f32, spec
 from dip_benchmark_tpu_torch.models import batch, chain
 from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
                                                      fused_pipeline_plain)
@@ -173,7 +186,8 @@ from dip_benchmark_tpu_torch.utils.image import (from_planar_padded,
                                                  stack_planar_padded,
                                                  to_planar_padded,
                                                  to_planar_padded_f32)
-from dip_benchmark_tpu_torch.utils.testimage import resolve_image
+from dip_benchmark_tpu_torch.utils.testimage import (resolve_image,
+                                                     synth_fundus)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
@@ -1132,24 +1146,28 @@ def compare_f32_window_edges(rng) -> dict:
     return errs
 
 
-def drive_main_path(model: Model, img, label, fuse) -> tuple[dict, dict]:
-    """Run the port's CLI once at full size with the pipeline row and the
-    chain ``fuse`` in ``model``'s data model; return that run's launch
-    counts and its rows' µs a round (``row_us``)."""
-    suffix = "" if model.dtype == "uint8" else "-" + model.dtype
-    dumps = fresh("dumps" + suffix)
-    csv = fresh(f"results{suffix}.csv")
+def drive_main_path(model: Model, img, label, fuse, rounds: int = 50,
+                    name: str = "benchmark-image",
+                    extra=()) -> tuple[dict, dict]:
+    """Run the port's CLI once on ``img`` (saved as ``name``) with
+    ``--verify``, the pipeline row and the chain ``fuse`` in ``model``'s
+    data model, and ``extra`` flags; return that run's launch counts and
+    its rows' µs a round (``row_us``)."""
+    tag = "-".join([name, model.dtype, *extra]).replace("--", "")
+    dumps = fresh("dumps-" + tag)
+    csv = fresh(f"results-{tag}.csv")
+    path = save_benchmark_image(img, name)
     kernels.reset_launches()
-    rc, text = run_cli([save_benchmark_image(img), dumps, "--rounds", "50",
+    rc, text = run_cli([path, dumps, "--rounds", str(rounds),
                         "--verify", "--pipeline", "--fuse", ",".join(fuse),
-                        "--dtype", model.dtype, "--csv", csv])
+                        "--dtype", model.dtype, "--csv", csv, *extra])
     counts = dict(kernels.LAUNCHES)
     check(rc == 0, f"cli.main exited {rc}")
     rows = table_rows(text)
     check(len(rows) == 16, f"expected 16 table rows, got {len(rows)}")
     prefixes = [p for _, p, _ in spec.OPERATION_MATRIX if p] + [
         "pipeline", "chain"]
-    names = [f"{p}-benchmark-image.png" for p in prefixes]
+    names = [f"{p}-{name}.png" for p in prefixes]
     missing = [n for n in names if not os.path.exists(os.path.join(dumps, n))]
     check(len(names) == 14 and not missing, f"missing dumps {missing}")
     with open(csv) as f:
@@ -1300,8 +1318,8 @@ def check_exec_rows(rows: list[dict], cols: list[str], what: str) -> None:
               f"{what}: unresolved --exec row {r}")
 
 
-def save_benchmark_image(img) -> str:
-    path = os.path.join(OUT, "benchmark-image.png")
+def save_benchmark_image(img, name: str = "benchmark-image") -> str:
+    path = os.path.join(OUT, f"{name}.png")
     save_image(path, img)
     return path
 
@@ -1470,10 +1488,15 @@ def drive_profile(img) -> list[dict]:
               f"the trace names no {want} kernel")
     host_share = load_host_share()
     rows = host_share.split(path)
-    check(len(rows) == 13, f"host split of {len(rows)} kernels, want 13")
+    check(len(rows) == 13, f"host split of {len(rows)} kernels, want 13: "
+          f"{[r['kernel'] for r in rows]}")
+    skew = host_share.clock_skew(trace)
     print(f"  trace {os.path.getsize(path) / 1e6:.1f} MB, "
-          f"{time.perf_counter() - t0:.1f} s; host share of a round "
-          f"(medians, µs; host_share.py):")
+          f"{time.perf_counter() - t0:.1f} s; kernel start - its launch "
+          f"call on the trace's clocks: min {skew[0]:.1f}, median "
+          f"{skew[1]:.1f}, max {skew[2]:.1f} µs (below 0 is the clock "
+          f"conversion's error, in the sync columns too); host share of "
+          f"a round (medians, µs; host_share.py):")
     print("    kernel | round | kernel | harness | wrapper | launch | "
           "alloc | sync wait | sync own | idle")
     for r in rows:
@@ -1615,11 +1638,17 @@ def shared_oracle(img):
     column and shared by every CLI run's --verify inside the block
     (phases 4 to 4s): the oracle is a function of the image alone, and at
     full size it takes the card's host longer than the rest of a run. Any
-    other image is computed as usual."""
+    other image is computed as usual. Yields, per data model, the modules
+    of the oracle ops that --verify was given (the chain rows' left out)."""
     real = BenchmarkSession.oracle_ops
-    answers = {}
+    answers, sources = {}, {}
 
     def oracle_ops(self):
+        ops = real(self)
+        sources.setdefault(self.dtype, set()).update(
+            fn.__module__ for col, fn in ops.items()
+            if not col.startswith("Fused-Chain"))
+
         def shared(key, fn):
             def op(image):
                 if not np.array_equal(image, img):
@@ -1629,11 +1658,11 @@ def shared_oracle(img):
                 return answers[key]
             return op
         return {col: shared((self.dtype, col), fn)
-                for col, fn in real(self).items()}
+                for col, fn in ops.items()}
 
     BenchmarkSession.oracle_ops = oracle_ops
     try:
-        yield
+        yield sources
     finally:
         BenchmarkSession.oracle_ops = real
 
@@ -1711,6 +1740,90 @@ def drive_sharded_batch(named: dict, cols=None) -> dict:
     print(f"  batch tool --shards 2 --data-shards 2 ({what}): rc 0, "
           f"{len(named)} images equal to the oracle; launches {counts}")
     return {"op": what, "launches": counts}
+
+
+# [8w] An image past the JAX package's single-buffer width envelope: its
+# uint8 kernels need column strips past 52,732 columns, its float32 ones
+# past 33,660 (``utils/image.fit_band`` there). The port's kernels put the
+# columns on the grid, so one buffer should serve any width.
+WIDE_SHAPE = (128, 60_000)
+
+
+def check_native_oracle(img, label) -> dict:
+    """[8n] Build the native C++ oracle (a failure is a fault here: the
+    card's nvcc needs a host C++ compiler), hold each of its 13 columns to
+    the NumPy oracle bit for bit on ``img``, and time both on the host."""
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    check(built, f"the native oracle did not build: {native.build_error()}")
+    print(f"  built {native.library_path()} in {build_s:.1f} s; host "
+          f"os.cpu_count() {os.cpu_count()}; {label}")
+    ops = native.image_ops()
+    rows = []
+    for col, fn in oracle.IMAGE_OPS.items():
+        t0 = time.perf_counter()
+        want = fn(img)
+        t1 = time.perf_counter()
+        got = ops[col](img)
+        t2 = time.perf_counter()
+        check(np.array_equal(got, want),
+              f"[8n] native {col} differs from the NumPy oracle")
+        rows.append({"col": col, "numpy_ms": 1e3 * (t1 - t0),
+                     "native_ms": 1e3 * (t2 - t1)})
+    print(f"    {'column':24s} | NumPy ms | native ms (array_equal on "
+          f"the whole image)")
+    for r in rows:
+        print(f"    {r['col']:24s} | {r['numpy_ms']:8.1f} | "
+              f"{r['native_ms']:8.1f}")
+    total = {k: sum(r[k] for r in rows) for k in ("numpy_ms", "native_ms")}
+    print(f"    {'total':24s} | {total['numpy_ms']:8.1f} | "
+          f"{total['native_ms']:8.1f}")
+    return {"rows": rows, **total, "build_s": build_s,
+            "cpu_count": os.cpu_count()}
+
+
+def drive_wide(models, smi) -> dict:
+    """[8w] The CLI on a ``WIDE_SHAPE`` synthetic fundus, past both
+    envelope limits, on the kernel path: ``--verify --pipeline --rounds
+    2`` with the main-path chain, once per data model and once more in
+    uint8 with ``--shards 2``; exit 0, 16 rows and every kernel of the
+    path launched in each run (``drive_main_path``)."""
+    t0 = time.perf_counter()
+    img = synth_fundus(*WIDE_SHAPE)
+    label = f"synth_fundus({WIDE_SHAPE[0]}x{WIDE_SHAPE[1]})"
+    layout = make_layout(*WIDE_SHAPE)
+    print(f"  {label}: {img.nbytes / 1e6:.1f} MB uint8, "
+          f"{4 * img.nbytes / 1e6:.1f} MB float32; one planar buffer "
+          f"{layout.shape} a data model | {smi}")
+    runs = []
+    with shared_oracle(img) as sources:
+        for model, extra in ((models[0], ()), (models[1], ()),
+                             (models[0], ("--shards", "2"))):
+            t1 = time.perf_counter()
+            counts, rows = drive_main_path(
+                model, img, label, MAIN_CHAINS[model.dtype], rounds=2,
+                name="wide", extra=extra)
+            if extra:
+                check(all(c % 2 == 0 for c in counts.values()),
+                      f"[8w] --shards 2: launch counts {counts} not even")
+            runs.append({"dtype": model.dtype, "args": list(extra),
+                         "rows": rows, "launches": counts,
+                         "seconds": time.perf_counter() - t1})
+    check(sources.get("uint8") == {native.__name__},
+          f"[8w] uint8 --verify used {sources.get('uint8')}, want the "
+          f"native oracle")
+    print(f"    {'µs a round, --rounds 2':24s} | " + " | ".join(
+        f"{r['dtype']} {' '.join(r['args'])}".strip() for r in runs))
+    for col in ["Upload", "Download"] + DEVICE_COLS + ["Fused-Chain"]:
+        print(f"    {col:24s} | " + " | ".join(
+            f"{r['rows'][col]:10.1f}" for r in runs))
+    seconds = time.perf_counter() - t0
+    print(f"  [8w] --verify passed in all {len(runs)} runs (oracles: "
+          + "; ".join(f"{k} {', '.join(sorted(v))}"
+                      for k, v in sorted(sources.items()))
+          + f"); took {seconds:.1f} s")
+    return {"image": label, "runs": runs, "seconds": seconds}
 
 
 def device_ms(fn, planar, n: int) -> list[float]:
@@ -1927,6 +2040,9 @@ def main() -> int:
             print("   ", ln.strip())
 
     img, label = resolve_image()
+    print("[8n] native C++ oracle: built, then each column against the "
+          "NumPy oracle (array_equal) and both timed on the host")
+    native_oracle = check_native_oracle(img, label)
     rng = np.random.default_rng(0)
     sizes = [(label, img),
              ("random 37x53", rng.integers(0, 256, (37, 53, 3), np.uint8)),
@@ -2000,7 +2116,7 @@ def main() -> int:
     counts, main_us = {}, {}
     fuse = MAIN_CHAINS
     oracle_memo = contextlib.ExitStack()
-    oracle_memo.enter_context(shared_oracle(img))
+    verify_sources = oracle_memo.enter_context(shared_oracle(img))
     for model, tag in ((u8, "4"), (f32, "4f")):
         print(f"[{tag}] main path: dip_benchmark_tpu_torch.cli.main "
               f"--dtype {model.dtype} --pipeline --fuse "
@@ -2090,6 +2206,14 @@ def main() -> int:
     sharded = drive_sharded([u8, f32], img, label, sizes[1][1], main_us,
                             exec_runs, smi)
     oracle_memo.close()
+    check(verify_sources.get("uint8") == {native.__name__},
+          f"uint8 --verify used {verify_sources.get('uint8')}, want the "
+          f"native oracle")
+    native_oracle["verify_sources"] = {k: sorted(v) for k, v in
+                                       verify_sources.items()}
+    print(f"[8w] widths past the JAX envelope: dip_benchmark_tpu_torch.cli."
+          f"main on {WIDE_SHAPE[0]}x{WIDE_SHAPE[1]}")
+    wide = drive_wide([u8, f32], smi)
 
     want = 26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
     check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
@@ -2102,8 +2226,15 @@ def main() -> int:
                    "main_path_launches": counts, "library_exec": library_exec,
                    "exec": exec_runs, "chained": chained,
                    "host_share": host_split, "sharded": sharded,
+                   "native_oracle": native_oracle, "wide": wide,
                    "nvidia_smi": smi,
                    "image": label}, f, indent=1)
+    print("[8n] --verify's oracle from phase 4 to 4s: " + "; ".join(
+        f"{k} {', '.join(v)}" for k, v in sorted(
+            native_oracle["verify_sources"].items()))
+          + f" | oracle on {label}: NumPy {native_oracle['numpy_ms']:.1f} "
+          f"ms, native {native_oracle['native_ms']:.1f} ms for 13 columns, "
+          f"os.cpu_count() {native_oracle['cpu_count']}")
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(smi)

@@ -1,8 +1,8 @@
 """Pure-NumPy golden implementations of the 14-op matrix.
 
 The port's own copy of ``dip_benchmark_tpu/oracle.py``; a test holds it
-equal to the JAX package's oracle. It is what ``--verify`` checks against
-(the JAX package's native C++ oracle is not ported).
+equal to the JAX package's oracle. ``--verify`` checks against it where
+the native C++ oracle (``native/``, held equal to it) does not build.
 
 These are the *specification*, not a fast path: every accelerated
 implementation (the CUDA kernels and their plain PyTorch versions) must

@@ -29,7 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import oracle, oracle_f32, spec
+from . import native, oracle, oracle_f32, spec
 from .harness import Operation
 from .models import chain
 from .ops import OPS, OPS_F32, kernels, library, library_f32
@@ -296,12 +296,17 @@ class BenchmarkSession:
         raise RuntimeError("memory ops produce no image")  # prefix == ""
 
     def oracle_ops(self) -> dict:
-        """The golden ops for --verify, uint8 HWC in and out: the port's
-        NumPy oracle, or for float32 its f32 oracle quantized, whose
-        Fused-Pipeline may return (expected, dontcare-mask); merged with
-        the chain rows' sequential oracles."""
-        base = (oracle_f32.uint8_verify_ops() if self.dtype == "float32"
-                else oracle.IMAGE_OPS)
+        """The golden ops for --verify, uint8 HWC in and out: for uint8
+        the native C++ oracle when it builds, else the NumPy oracle (the
+        JAX package's rule: NumPy is too slow for a check every run at
+        8 Mpx); for float32 the f32 oracle quantized, whose Fused-Pipeline
+        may return (expected, dontcare-mask); merged with the chain rows'
+        sequential oracles."""
+        if self.dtype == "float32":
+            base = oracle_f32.uint8_verify_ops()
+        else:
+            base = (native.image_ops() if native.available()
+                    else oracle.IMAGE_OPS)
         return {**base, **self._extra_oracles}
 
 

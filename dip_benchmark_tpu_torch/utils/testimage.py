@@ -19,6 +19,11 @@ explicit path wins, then the reference photograph when ``DIP_TPU_REF``
 names a reference checkout that holds it, then the synthetic. It returns
 the image together with a source label so published numbers always name
 their input. Nothing is downloaded.
+
+    python -m dip_benchmark_tpu_torch.utils.testimage out.png \
+        [--height H] [--width W]
+
+writes the synthetic fundus to a file (``utils/image.save_image``).
 """
 
 from __future__ import annotations
@@ -116,3 +121,21 @@ def resolve_image(path: str | None = None, height: int = FUNDUS_H,
         return load_image(fundus), "fundus.jpg"
     return (synth_fundus(height, width),
             f"synth_fundus({height}x{width})")
+
+
+def _main(argv: list[str] | None = None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Write the deterministic synthetic fundus to a file")
+    ap.add_argument("out", help="output path (.png recommended: lossless)")
+    ap.add_argument("--height", type=int, default=FUNDUS_H)
+    ap.add_argument("--width", type=int, default=FUNDUS_W)
+    args = ap.parse_args(argv)
+    from .image import save_image
+    save_image(args.out, synth_fundus(args.height, args.width))
+    print(f"wrote {args.out} ({args.height}x{args.width})")
+
+
+if __name__ == "__main__":
+    _main()

@@ -3,6 +3,7 @@ its kernels or raises, and never reaches a kernel from a CPU tensor."""
 
 import ast
 import os
+import py_compile
 import shutil
 import subprocess
 import sys
@@ -68,7 +69,33 @@ def test_port_imports_neither_jax_nor_triton():
         "import dip_benchmark_tpu_torch.parallel.ops\n"
         "import dip_benchmark_tpu_torch.parallel.kernel_ops\n"
         "import dip_benchmark_tpu_torch.parallel.session\n"
+        "import dip_benchmark_tpu_torch.native\n"
+        "import dip_benchmark_tpu_torch.utils.plots\n"
         "import dip_benchmark_tpu_torch.utils.testimage") == []
+
+
+def test_port_imports_without_matplotlib():
+    # matplotlib made unimportable: the package, the reporting module and
+    # its CSV reader still load; only rendering needs it.
+    code = ("import sys\n"
+            "sys.modules['matplotlib'] = None\n"
+            "import dip_benchmark_tpu_torch.cli\n"
+            "import dip_benchmark_tpu_torch.native\n"
+            "from dip_benchmark_tpu_torch.utils import plots, testimage\n"
+            "try:\n"
+            "    import matplotlib\n"
+            "except ImportError:\n"
+            "    print('no matplotlib', plots.main.__name__)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**os.environ, "PYTHONPATH": REPO},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["no", "matplotlib", "main"]
+
+
+def test_chip_smoke_compiles(tmp_path):
+    py_compile.compile(os.path.join(REPO, "chip_smoke.py"),
+                       cfile=str(tmp_path / "chip_smoke.pyc"), doraise=True)
 
 
 def test_no_port_file_imports_the_jax_package():
@@ -78,6 +105,9 @@ def test_no_port_file_imports_the_jax_package():
     assert {"halo.py", "ops.py", "kernel_ops.py", "session.py"} <= {
         os.path.basename(f) for f in files
         if os.path.basename(os.path.dirname(f)) == "parallel"}
+    assert {os.path.join("native", "__init__.py"),
+            os.path.join("utils", "plots.py")} <= {
+        os.path.relpath(f, PORT) for f in files}
     bad = {os.path.relpath(f, REPO): m for f in files
            for m in imported_modules(f) if m.split(".")[0] in FORBIDDEN}
     assert not bad, bad
