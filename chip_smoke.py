@@ -64,6 +64,21 @@ csrc`` with nvcc, then, with no fallback anywhere:
    random elements of radius 1..8 (``random_element``: sparse and dense,
    empty rows, rows of several runs, off-centre) at
    ``RANDOM_ELEMENT_IMAGES``, whole buffer, tolerance 0;
+   [3l] the tile kernels of ``csrc/conv.cu`` (every mask shape the JAX
+   package builds that the strip bodies do not): every dense kh x kw with
+   sides in ``CONV_SIDES`` (1, 2, 3, 5, 7, 9, 17) in both models, random
+   weights of either sign, factoring masks (the two-pass form unrounded
+   between), separable N 1 to 17 (odd) in both models, an ``acc_dtype``,
+   masks whose int32 sums wrap, at ``EDGE_IMAGES`` on pad-8 layouts (raw
+   buffers of that shape where an image is smaller than 9) and
+   ``EDGE_BUFFERS``, whole buffer, tolerance 0; then ``CONV_TIMED`` (7x7,
+   17x17, 1x17 dense, separable N 9 and 17, both models) through the
+   builders on the pad-8 planar ``(3, 2352, 3520)`` of the benchmark
+   image, driven once with the counts zeroed (each of the four kernels
+   launched), every output equal to its plain version, the same builders'
+   crops on 37x53 equal to the oracle, and each timed as phase 6 times
+   (kernel, plain, and for float32 one depthwise ``F.conv2d``) beside its
+   bound;
 4. drives the port's CLI once at full size (``--rounds 50 --verify
    --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
    requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
@@ -123,11 +138,11 @@ csrc`` with nvcc, then, with no fallback anywhere:
    zeroed before one application that must launch the op's kernel once a
    shard and nothing else, the valid values equal to the unsharded
    session's (tolerance 0); then the CLI with the counts zeroed before
-   each run: ``--shards 1 --pipeline --exec`` (uint8), ``--shards 2`` and
-   ``4 --verify --pipeline --fuse`` C1 or C2 in each model (16 rows, every
+   each run: ``--shards 1 --pipeline --exec`` (uint8), ``--shards 2
+   --verify --pipeline --fuse`` C1 or C2 in each model (16 rows, every
    kernel of the path launched a multiple of N times; ``--exec`` in
    uint8, each slope resolved, each graph held to K direct calls),
-   ``--path library --shards 4 --verify --pipeline`` (no port kernel);
+   ``--path library --shards 2 --verify --pipeline`` (no port kernel);
    the rows' µs beside the unsharded ones (phases 4, 4f, 4x); the batch
    tool with ``--shards 2 --data-shards 2`` on the pipeline and on
    ``--op`` C3 over two full-size images and one other (every output
@@ -141,7 +156,7 @@ csrc`` with nvcc, then, with no fallback anywhere:
    every kernel of the path launched, each row's µs printed; then the
    oracle that phase 4's ``--verify`` used, the oracles' times and the
    total;
-7. prints ``{"kernels": [...]}`` (46 entries, each with its ``dtype``),
+7. prints ``{"kernels": [...]}`` (56 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -156,6 +171,7 @@ import ctypes
 import importlib.util
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -363,6 +379,34 @@ MORPHOLOGY = [
 # empty rows, rows of several runs, off-centre) at these image sizes.
 RANDOM_ELEMENTS = 12
 RANDOM_ELEMENT_IMAGES = ((9, 9), (37, 53), (70, 150), (133, 301))
+
+# Phase 3l: the mask shapes of csrc/conv.cu's tile kernels, on pad-8
+# layouts: every dense kh x kw with sides in CONV_SIDES, separable N 1 to 17
+# (odd), at EDGE_IMAGES (as raw buffers of the pad-8 planar's shape where an
+# image is too small for a pad-8 bake) and EDGE_BUFFERS; then, at full size,
+# CONV_TIMED through the builders, timed.
+CONV_PAD = 8
+CONV_SIDES = (1, 2, 3, 5, 7, 9, 17)
+CONV_SEP_NS = tuple(range(1, 18, 2))
+# (label, data model, form, mask side(s) or N) timed at full size.
+CONV_TIMED = [(f"{kind} {shape}", dtype, kind, shape)
+              for dtype in ("uint8", "float32")
+              for kind, shape in (("dense", (7, 7)), ("dense", (17, 17)),
+                                  ("dense", (1, 17)), ("separable", 9),
+                                  ("separable", 17))]
+# kernel -> (file:line and name of the TPU kernel it replaces).
+CONV_TPU = {
+    "conv_tile_dense_u8": ("ops/pallas/window.py:491",
+                           "make_convolution (body_packed :562, body_i32 "
+                           ":581, any acc_dtype), shapes past 3x3, 5x5"),
+    "conv_tile_two_pass_u8": ("ops/pallas/window.py:606",
+                              "make_convolution_separated_fused (every N "
+                              "but 3, 5); make_convolution body_rank1 :541"),
+    "conv_tile_dense_f32": ("ops/pallas/f32.py:133",
+                            "_make_conv, shapes past 3x3, 5x5"),
+    "conv_tile_sep_f32": ("ops/pallas/f32.py:160",
+                          "_make_conv_sep, every N but 3, 5"),
+}
 
 # The one PyTorch call that computes an op's whole-buffer function, where
 # there is one: the yardstick, timed here and used nowhere in the port.
@@ -882,6 +926,284 @@ def compare_window_edges(rng) -> dict:
         print(f"  {label} {tuple(planar.shape)}: {len(bodies)} window_u8 "
               f"cases equal to their plain versions")
     return errs
+
+
+def conv_edge_inputs(rng, dtype: str) -> list:
+    """(label, planar on the CPU) at EDGE_IMAGES on pad-8 layouts (an image
+    too small for one: a raw buffer of that planar's shape) and
+    EDGE_BUFFERS; random data, floats in [0, 1) for float32."""
+    shapes = []
+    for h, w in EDGE_IMAGES:
+        if min(h, w) > CONV_PAD:
+            layout = make_layout(h, w, pad=CONV_PAD)
+            img = rng.integers(0, 256, (h, w, 3), np.uint8)
+            bake = (to_planar_padded if dtype == "uint8"
+                    else to_planar_padded_f32)
+            shapes.append((f"{h}x{w}", bake(img, layout)))
+        else:
+            shapes.append((f"{h}x{w} raw", (3, h + 2 * CONV_PAD,
+                                            -(-(w + 2 * CONV_PAD) // 16)
+                                            * 16)))
+    shapes += [(f"raw {shape}", shape) for shape in EDGE_BUFFERS]
+    out = []
+    for label, x in shapes:
+        if isinstance(x, tuple):
+            x = torch.from_numpy(
+                rng.integers(0, 256, x, np.uint8) if dtype == "uint8"
+                else rng.random(x, dtype=np.float32))
+        out.append((label, x))
+    return out
+
+
+def smooth_mask(rng, kh: int, kw: int) -> tuple:
+    """(mask, shift): nonnegative weights summing to about 1 << shift (a
+    user's smoothing filter), their sum past the packed-16 bound, so that
+    the mask takes the dense form, as a row mask 1xN must to."""
+    m = rng.integers(8, 40, (kh, kw)).astype(np.int32)
+    m[kh // 2, kw // 2] += 16
+    check(window.rank1_factors(m) is None, f"{m.tolist()} takes rank 1")
+    return m, int(round(np.log2(m.sum())))
+
+
+def conv_tile_cases(rng) -> list:
+    """(label, data model, kernel name, op on a planar tensor, its plain
+    version) for [3l]: every dense shape of CONV_SIDES in both models
+    (random weights of either sign), factoring masks (the two-pass form
+    unrounded between), separable N in CONV_SEP_NS in both models, an
+    acc_dtype, and masks whose int32 sums wrap."""
+    cases = []
+
+    def u8(label, mask, shift, acc=None):
+        name = window.convolution_launch(mask, shift, acc)[0]
+        cases.append((label, "uint8", name,
+                      lambda p, m=mask, s=shift, a=acc: window.convolution(
+                          p, m, s, a),
+                      lambda p, m=mask, s=shift, a=acc:
+                      window.convolution_plain(p, m, s, a)))
+
+    for kh in CONV_SIDES:
+        for kw in CONV_SIDES:
+            u8(f"{kh}x{kw}", rng.integers(-40, 90, (kh, kw)).astype(
+                np.int32), int(rng.integers(3, 9)))
+            fm = rng.integers(-1000, 1001, (kh, kw)).astype(np.int32)
+            cases.append((f"{kh}x{kw}", "float32",
+                          f32.convolution_launch(fm, 10)[0],
+                          lambda p, m=fm: f32.convolution(p, m, 10),
+                          lambda p, m=fm: f32.conv_dense_plain(p, m, 10)))
+    for kh, kw in ((7, 5), (2, 9), (1, 17), (17, 17)):
+        u, v = rng.integers(0, 2, kh), rng.integers(0, 2, kw)
+        u[kh // 2], v[kw // 2] = 1, 1
+        u8(f"rank 1 {kh}x{kw}", np.outer(u, v).astype(np.int32),
+           int(rng.integers(1, 6)))
+    u8("acc_dtype int32 7x7", np.outer([1, 2, 3, 4, 3, 2, 1],
+                                       [1, 1, 2, 2, 2, 1, 1]).astype(
+        np.int32), 6, "int32")
+    for label, mask, shift in (
+            ("wraps, either sign, 5x5", np.where(
+                np.arange(25).reshape(5, 5) % 3, 1 << 24, -(1 << 23)), 4),
+            ("wraps, either sign, 3x3", np.full((3, 3), 3 << 24) * np.array(
+                [1, -1, 1]), 20),
+            ("wraps, no clamp, 9x9 >> 31", np.full((9, 9), 1 << 23), 31)):
+        u8(label, mask.astype(np.int32), shift)
+    for n in CONV_SEP_NS:
+        for dtype, mod in (("uint8", window), ("float32", f32)):
+            lo, hi, shift = (-6, 9, 3) if dtype == "uint8" else (
+                -1000, 1001, 10)
+            row = rng.integers(lo, hi, (1, n)).astype(np.int32)
+            col = rng.integers(lo, hi, (n, 1)).astype(np.int32)
+            cases.append((f"separable {n}", dtype,
+                          mod.convolution_separated_launch(row, col,
+                                                           shift)[0],
+                          lambda p, r=row, c=col, s=shift, m=mod:
+                          m.convolution_separated(p, r, c, s),
+                          lambda p, r=row, c=col, s=shift, m=mod:
+                          m.conv_sep_plain(p, r, c, s)))
+    row = np.array([[1 << 22, -(1 << 22), 3 << 21, 5, -(1 << 21)]], np.int32)
+    cases.append(("separable 5, wraps", "uint8",
+                  window.convolution_separated_launch(row, row.T.copy(),
+                                                      3)[0],
+                  lambda p: window.convolution_separated(p, row,
+                                                         row.T.copy(), 3),
+                  lambda p: window.conv_sep_plain(p, row, row.T.copy(), 3)))
+    return cases
+
+
+def compare_conv_tiles(rng) -> dict:
+    """[3l] (a): every case of conv_tile_cases against its plain version
+    on the whole buffer, tolerance 0, at the edge inputs of its data
+    model; the largest |kernel - plain| per kernel name."""
+    cases = conv_tile_cases(rng)
+    for name in CONV_TPU:
+        check(any(c[2] == name for c in cases), f"no [3l] case runs {name}")
+    errs = {}
+    for dtype in ("uint8", "float32"):
+        mine = [c for c in cases if c[1] == dtype]
+        for label, planar in conv_edge_inputs(rng, dtype):
+            planar = planar.cuda()
+            for what, _, name, fn, plain in mine:
+                got, want = fn(planar), plain(planar)
+                torch.cuda.synchronize()
+                err = max_delta(got, want)
+                errs[name] = max(errs.get(name, 0.0), err)
+                check(torch.equal(got, want), f"{name} ({what}) on {label} "
+                      f"{tuple(planar.shape)}: kernel differs from its "
+                      f"plain version (max |delta| {err})")
+            print(f"  {dtype} {label} {tuple(planar.shape)}: {len(mine)} "
+                  f"convolutions equal to their plain versions")
+    return errs
+
+
+def conv_timed_ops(rng, layout) -> list:
+    """(label, data model, op built on ``layout``, plain version, mask,
+    shift) for each of CONV_TIMED: the dense masks from smooth_mask (not
+    rank 1), the separable ones a binomial row over 2^(N-1)."""
+    ops = []
+    for label, dtype, kind, shape in CONV_TIMED:
+        if kind == "dense":
+            mask, shift = smooth_mask(rng, *shape)
+            if dtype == "uint8":
+                op = window.make_convolution(layout, *shape, shift, mask)
+                plain = (lambda p, m=mask, s=shift:
+                         window.conv_dense_plain(p, m, s))
+            else:
+                op = f32.make_conv(layout, mask, shift)
+                plain = lambda p, m=mask, s=shift: f32.conv_dense_plain(
+                    p, m, s)
+        else:
+            mask = np.array([[math.comb(shape - 1, k) for k in range(shape)]],
+                            np.int32)
+            shift = shape - 1
+            mod = window if dtype == "uint8" else f32
+            build = (window.make_convolution_separated_fused
+                     if dtype == "uint8" else f32.make_conv_sep)
+            op = build(layout, shape, mask, shift)
+            plain = lambda p, m=mask, s=shift, md=mod: md.conv_sep_plain(
+                p, m, m.T.copy(), s)
+        ops.append((label, dtype, op, plain, mask, shift))
+    return ops
+
+
+def conv_oracle(dtype: str, kind: str, img, mask, shift):
+    """The oracle's HWC crop of one CONV_TIMED op on ``img``."""
+    if dtype == "uint8":
+        if kind == "dense":
+            return oracle.convolution(img, mask, shift)
+        return oracle.convolution(oracle.convolution(img, mask, shift),
+                                  mask.T.copy(), shift)
+    x = oracle_f32.from_uint8_hwc(img)
+    if kind == "dense":
+        y = oracle_f32.convolution(x, mask, shift)
+    else:
+        y = oracle_f32.convolution(oracle_f32.convolution(x, mask, shift),
+                                   mask.T.copy(), shift)
+    return np.ascontiguousarray(np.transpose(y, (1, 2, 0)))
+
+
+def drive_conv_tiles(img, small) -> tuple[dict, list, dict]:
+    """[3l] (b): the builders of CONV_TIMED on the pad-8 planar of the
+    full-size image, driven once with the counts zeroed (each kernel of
+    CONV_TPU launched, nothing else); every output equal to its plain
+    version on the whole buffer (tolerance 0). Then the same builders on
+    ``small``: the crops equal to the oracle (float32 too: the kernels
+    keep its order of sums, and it starts from 0.0). Returns the counts,
+    the ops on the full-size layout and the largest |kernel - plain| per
+    kernel."""
+    layout = make_layout(*img.shape[:2], pad=CONV_PAD)
+    planars = {"uint8": to_planar_padded(img, layout).cuda(),
+               "float32": to_planar_padded_f32(img, layout).cuda()}
+    ops = conv_timed_ops(np.random.default_rng(12), layout)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = [op(planars[dtype]) for _, dtype, op, *_ in ops]
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    check(set(counts) == set(CONV_TPU) and min(counts.values()) >= 1,
+          f"[3l] builders launched {counts}, want each of {sorted(CONV_TPU)}")
+    errs = {}
+    for (label, dtype, op, plain, *_), out in zip(ops, outs):
+        err = max_delta(out, plain(planars[dtype]))
+        errs[op.kernel] = max(errs.get(op.kernel, 0.0), err)
+        check(err == 0, f"{op.kernel} ({label}) at full size: kernel "
+              f"differs from its plain version (max |delta| {err})")
+    small_layout = make_layout(*small.shape[:2], pad=CONV_PAD)
+    small_ops = conv_timed_ops(np.random.default_rng(12), small_layout)
+    for (label, dtype, op, _, mask, shift), (*_, kind, _) in zip(
+            small_ops, CONV_TIMED):
+        bake = (to_planar_padded if dtype == "uint8"
+                else to_planar_padded_f32)
+        got = from_planar_padded(op(bake(small, small_layout).cuda()),
+                                 small_layout)
+        want = conv_oracle(dtype, kind, small, mask, shift)
+        check(np.array_equal(got, want), f"{op.kernel} ({label}) on "
+              f"{small.shape[:2]}: crop differs from the oracle (max "
+              f"|delta| {np.abs(got.astype(float) - want).max()})")
+    print(f"  {img.shape[0]}x{img.shape[1]} on pad {CONV_PAD} "
+          f"{tuple(planars['uint8'].shape)}: {len(ops)} builders, counts "
+          f"zeroed: launches {counts}; each output equal to its plain "
+          f"version; on {small.shape[0]}x{small.shape[1]} each crop equal "
+          f"to the oracle")
+    return counts, ops, errs
+
+
+def conv_work(dtype: str, kind: str, shape):
+    """WORK or WORK_F32 of one CONV_TIMED op a position of the plane, all
+    three planes: multiply-adds and rounding steps (uint8), or float32
+    multiplies and adds."""
+    taps = shape[0] * shape[1] if kind == "dense" else 2 * shape
+    rounds = 1 if kind == "dense" else 2
+    if dtype == "uint8":
+        return (3 * taps, 9 * rounds)
+    return 3 * (2 * taps - rounds)
+
+
+def time_conv_tiles(img, ops, counts: dict, errs: dict) -> list[dict]:
+    """[3l] (b): kernel, plain and (float32) one depthwise F.conv2d device
+    time of each CONV_TIMED op at full size, beside its bound; one
+    ``{"kernels": [...]}`` entry each."""
+    layout = make_layout(*img.shape[:2], pad=CONV_PAD)
+    planars = {"uint8": to_planar_padded(img, layout).cuda(),
+               "float32": to_planar_padded_f32(img, layout).cuda()}
+    entries = []
+    for (label, dtype, op, plain, mask, shift), (*_, kind, shape) in zip(
+            ops, CONV_TIMED):
+        planar = planars[dtype]
+        versions = [op, plain]
+        if dtype == "float32":
+            lib = (_depthwise(spec.mask_float(mask, shift)) if kind == "dense"
+                   else _separable(mask, mask.T.copy(), shift))
+            got, want = lib(planar), plain(planar)
+            r0 = (want.shape[-2] - got.shape[-2]) // 2
+            c0 = (want.shape[-1] - got.shape[-1]) // 2
+            want = want[:, r0:r0 + got.shape[-2], c0:c0 + got.shape[-1]]
+            # Within 4 ulps a term of the sum of |weights|: F.conv2d sums
+            # in another order, and the separable pair as one dense mask.
+            total = float(np.abs(spec.mask_float(mask, shift)).sum())
+            terms, total = ((mask.size, total) if kind == "dense" else
+                            (mask.size ** 2 + 2 * mask.size, total ** 2))
+            tol = 4 * terms * 2.0 ** -24 * total
+            err = max_delta(got, want)
+            check(err <= tol, f"library {label} is {err} from the plain "
+                              f"version (tolerance {tol}; TF32 on?)")
+            versions.append(lib)
+        ms, plain_ms, *lib_ms = timed(versions, planar)
+        library_ms = lib_ms[0] if lib_ms else None
+        bound_ms, bound_by = bound_for(conv_work(dtype, kind, shape),
+                                       planar)
+        lib_txt = ("none" if library_ms is None
+                   else f"{library_ms:9.4f} ms (conv2d)")
+        print(f"    {dtype:7s} {label:18s} {op.kernel:22s} kernel {ms:9.4f}"
+              f" ms | plain {plain_ms:9.4f} ms | library {lib_txt} | bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        where, tpu_name = CONV_TPU[op.kernel]
+        entries.append({
+            "name": op.kernel, "dtype": dtype, "op": label, "route": "cuda",
+            "source": CSRC + "conv.cu", "replaces": "dip_benchmark_tpu/"
+            + where, "tpu_kernel": tpu_name,
+            "launches": counts.get(op.kernel, 0),
+            "max_abs_err": errs.get(op.kernel, 0.0), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+    return entries
 
 
 def chain_edge_inputs(rng, cols) -> list:
@@ -1510,7 +1832,7 @@ def drive_profile(img) -> list[dict]:
 # [4s] Row sharding: the CLI's --shards on the card, and the shard counts
 # whose crops are held to the unsharded session in process (3 pads the
 # benchmark image's 2336 rows to 2337 + 1 + 3, the row-padding rule).
-SHARDS = (2, 4)
+SHARDS = (2,)    # the CLI runs; the crops of 2, 3 and 4 shards are held above
 SHARD_CHECKS = (2, 3, 4)
 SHARD_CHECKS_SMALL = (8,)  # the 37x53 image: 5-row shards, 3 rows padded
 
@@ -1603,9 +1925,9 @@ def drive_sharded_cli(model: Model, img, n: int, extra) -> dict:
 
 
 def sharded_cli_runs(models, img) -> tuple[list, dict]:
-    """[4s] The CLI at --shards 1 (uint8, --exec), 2 and 4 (--verify
+    """[4s] The CLI at --shards 1 (uint8, --exec) and 2 (--verify
     --pipeline --fuse, every kernel of the path launched; --exec in
-    uint8), and --path library --shards 4 --verify (no port kernel)."""
+    uint8), and --path library --shards 2 --verify (no port kernel)."""
     runs = [drive_sharded_cli(models[0], img, 1, ["--pipeline", "--exec"])]
     for model in models:
         fuse = ",".join(MAIN_CHAINS[model.dtype])
@@ -1624,10 +1946,10 @@ def sharded_cli_runs(models, img) -> tuple[list, dict]:
                 check_exec_rows(run["exec"], DEVICE_COLS + ["Fused-Chain"],
                                 f"--shards {n} --exec")
             runs.append(run)
-    library = drive_sharded_cli(models[0], img, 4, [
+    library = drive_sharded_cli(models[0], img, 2, [
         "--path", "library", "--verify", "--pipeline"])
     check(not library["launches"] and len(library["rows"]) == 15,
-          f"--path library --shards 4: launches {library['launches']}, "
+          f"--path library --shards 2: launches {library['launches']}, "
           f"{len(library['rows'])} rows")
     return runs, library
 
@@ -1670,9 +1992,9 @@ def shared_oracle(img):
 def drive_sharded(models, img, label, small, main_us, exec_runs,
                   smi) -> dict:
     """[4s] Row sharding on the card: crops held in process, then the CLI
-    at --shards 1, 2, 4 (``--verify --pipeline --fuse`` at 2 and 4, each
+    at --shards 1 and 2 (``--verify --pipeline --fuse`` at 2, each
     kernel of the path launched; ``--exec`` in uint8), ``--path library
-    --shards 4 --verify``, and the batch tool on a 2x2 mesh."""
+    --shards 2 --verify``, and the batch tool on a 2x2 mesh."""
     t0 = time.perf_counter()
     held = check_sharded_crops(models, [
         (label, img, SHARD_CHECKS), ("random 37x53", small,
@@ -1698,7 +2020,7 @@ def drive_sharded(models, img, label, small, main_us, exec_runs,
                 line += f" || {ex[col]:8.2f} | " + " | ".join(
                     f"N={k} {v:8.2f}" for k, v in sorted(b.items()))
             print(line)
-    print(f"  library path, --shards 4 --verify: rc 0, 15 rows, no port "
+    print(f"  library path, --shards 2 --verify: rc 0, 15 rows, no port "
           f"kernel launched; µs " + ", ".join(
               f"{c} {v:.1f}" for c, v in library["rows"].items()))
     _, named = write_batch_inputs(
@@ -2100,6 +2422,20 @@ def main() -> int:
           "uint8 min and max, float32 min: kernel against plain version, "
           "tolerance 0")
     random_errs = compare_random_elements(rng)
+    print("[3l] convolution tile kernels (csrc/conv.cu): every dense shape "
+          f"of sides {CONV_SIDES}, separable N {CONV_SEP_NS}, acc_dtype, "
+          "int32 wrap, on pad-8 layouts: kernel against plain version, "
+          "tolerance 0")
+    t0 = time.perf_counter()
+    conv_rng = np.random.default_rng(3)
+    conv_errs = compare_conv_tiles(conv_rng)
+    conv_counts, conv_ops, drive_errs = drive_conv_tiles(img, sizes[1][1])
+    for name, err in drive_errs.items():
+        conv_errs[name] = max(conv_errs.get(name, 0.0), err)
+    print(f"    full size, device time, median of {TIMED_LAUNCHES} launches "
+          f"each, CUDA events, {label} | {smi}")
+    conv_entries = time_conv_tiles(img, conv_ops, conv_counts, conv_errs)
+    print(f"  [3l] took {time.perf_counter() - t0:.1f} s")
     for i, (*_, name, _, _) in enumerate(MORPHOLOGY):
         for other in (edge_errs, f32_edge_errs, random_errs):
             morph_errs[i] = max(morph_errs[i], other.get(name, 0.0))
@@ -2202,7 +2538,7 @@ def main() -> int:
           f"{seconds_new:.1f} s")
     print(f"[4s] row sharding: ShardedBenchmarkSession against the "
           f"unsharded session, dip_benchmark_tpu_torch.cli.main --shards "
-          f"1, 2, 4, models.batch.main --shards 2 --data-shards 2 | {smi}")
+          f"1, 2, models.batch.main --shards 2 --data-shards 2 | {smi}")
     sharded = drive_sharded([u8, f32], img, label, sizes[1][1], main_us,
                             exec_runs, smi)
     oracle_memo.close()
@@ -2215,7 +2551,9 @@ def main() -> int:
           f"main on {WIDE_SHAPE[0]}x{WIDE_SHAPE[1]}")
     wide = drive_wide([u8, f32], smi)
 
-    want = 26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
+    entries += conv_entries
+    want = (26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
+            + len(CONV_TIMED))
     check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
     summary = {"kernels": entries}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
@@ -2223,6 +2561,7 @@ def main() -> int:
                    batch_counts, "chain_batch_tool_launches":
                    chain_batch_counts, "op_batch_tool_launches":
                    op_batch_counts, "morphology_launches": morph_counts,
+                   "conv_tile_launches": conv_counts,
                    "main_path_launches": counts, "library_exec": library_exec,
                    "exec": exec_runs, "chained": chained,
                    "host_share": host_split, "sharded": sharded,

@@ -9,6 +9,13 @@ outer ring of ``hy`` rows and ``hx`` columns (2 for the pipeline). The
 erosions' plain versions are the uint8 model's (``window.erosion_plain``,
 ``window.erosion_sep_plain``): a min over taps is the same for any dtype.
 
+The convolutions take any mask of 1 to 17 taps a side (N from 1 to 17
+separable), anchored at ``(kh // 2, kw // 2)``: 3x3 and 5x5 (N 3, 5) on
+the strip bodies of ``f32.cu``, every other shape on the tile kernels of
+``csrc/conv.cu``; ``make_conv`` and ``make_conv_sep`` are the JAX
+package's ``_make_conv`` and ``_make_conv_sep``, refusing a mask wider
+than the layout's pad.
+
 Each op has a wrapper that launches its CUDA kernel
 (``kernels/csrc/f32.cu``) for a tensor on the card, and a plain PyTorch
 version (``*_plain``) of the same whole-buffer function that the wrapper
@@ -194,37 +201,80 @@ def erosion_separated(planar: torch.Tensor) -> torch.Tensor:
                                  "dip_erosion_sep_f32", planar)
 
 
+def convolution_launch(int_mask: np.ndarray, shift: int) -> tuple:
+    """(kernel name, C entry point, its arguments after the geometry) of
+    ``convolution``: the strip body ``ConvDense`` for 3x3 and 5x5, the
+    tile kernel of ``csrc/conv.cu`` for every other shape."""
+    kh, kw = int_mask.shape
+    window.check_conv_shape(kh, kw)
+    weights = _float_array(spec.mask_float(int_mask, shift))
+    if kh == kw and kh in window.STRIP_CONV_SIZES:
+        return (f"window_f32<ConvDense<{kh},{kw}>>", "dip_conv_dense_f32",
+                (kh, kw, weights))
+    return "conv_tile_dense_f32", "dip_conv_tile_dense_f32", (kh, kw, weights)
+
+
 def convolution(planar: torch.Tensor, int_mask: np.ndarray,
                 shift: int) -> torch.Tensor:
-    """Dense correlation with the float mask int_mask / 2**shift, 3x3 or
-    5x5."""
+    """Dense correlation with the float mask int_mask / 2**shift, 1 to 17
+    taps a side, anchored at ``(kh // 2, kw // 2)``."""
     kernels.check_planar(planar, dtype=F32)
-    kh, kw = int_mask.shape
-    if kh != kw or kh not in window.CONV_DENSE_SIZES:
-        raise ValueError(f"no dense convolution kernel for a {kh}x{kw} "
-                         f"mask (square, sizes {window.CONV_DENSE_SIZES})")
+    window.check_conv_shape(*int_mask.shape)
     if kernels.on_cpu(planar):
         return conv_dense_plain(planar, int_mask, shift)
-    return window._launch_window(
-        f"window_f32<ConvDense<{kh},{kw}>>", "dip_conv_dense_f32", planar,
-        kh, kw, _float_array(spec.mask_float(int_mask, shift)))
+    name, entry, extra = convolution_launch(int_mask, shift)
+    return window._launch_window(name, entry, planar, *extra)
+
+
+def convolution_separated_launch(row_mask: np.ndarray, col_mask: np.ndarray,
+                                 shift: int) -> tuple:
+    """(kernel name, C entry point, its arguments after the geometry) of
+    ``convolution_separated``: ``ConvSep<N>`` for N 3 and 5, the tile
+    kernel for every other N."""
+    n = window.separable_taps(row_mask, col_mask)
+    weights = (n, _float_array(spec.mask_float(row_mask, shift)),
+               _float_array(spec.mask_float(col_mask, shift)))
+    if n in window.STRIP_CONV_SIZES:
+        return f"window_f32<ConvSep<{n}>>", "dip_conv_sep_f32", weights
+    return "conv_tile_sep_f32", "dip_conv_tile_sep_f32", weights
 
 
 def convolution_separated(planar: torch.Tensor, row_mask: np.ndarray,
                           col_mask: np.ndarray, shift: int) -> torch.Tensor:
-    """1xN then Nx1 correlation, unrounded between, N in {3, 5}."""
+    """1xN then Nx1 correlation, unrounded between, N from 1 to 17."""
     kernels.check_planar(planar, dtype=F32)
-    n = row_mask.size
-    if (row_mask.shape != (1, n) or col_mask.shape != (n, 1)
-            or n not in window.CONV_SEP_SIZES):
-        raise ValueError(f"no separable convolution kernel for masks "
-                         f"{row_mask.shape} and {col_mask.shape}")
+    window.separable_taps(row_mask, col_mask)
     if kernels.on_cpu(planar):
         return conv_sep_plain(planar, row_mask, col_mask, shift)
-    return window._launch_window(
-        f"window_f32<ConvSep<{n}>>", "dip_conv_sep_f32", planar, n,
-        _float_array(spec.mask_float(row_mask, shift)),
-        _float_array(spec.mask_float(col_mask, shift)))
+    name, entry, extra = convolution_separated_launch(row_mask, col_mask,
+                                                      shift)
+    return window._launch_window(name, entry, planar, *extra)
+
+
+def make_conv(layout, int_mask: np.ndarray, shift: int):
+    """Dense correlation with int_mask / 2**shift on the float32 ``layout``
+    (the JAX package's ``_make_conv``): 1 to 17 taps a side, the mask's
+    half-sizes within the layout's pad."""
+    int_mask = np.asarray(int_mask)
+    kh, kw = int_mask.shape
+    window.check_conv_shape(kh, kw)
+    window.check_radius(layout, kh // 2, kw // 2, f"{kh}x{kw} mask")
+    name, entry, extra = convolution_launch(int_mask, shift)
+    return window.layout_op(
+        layout, F32, name, lambda p: conv_dense_plain(p, int_mask, shift),
+        lambda p: window._launch_window(name, entry, p, *extra))
+
+
+def make_conv_sep(layout, n: int, row_mask: np.ndarray, shift: int):
+    """The 1xN pass, then the Nx1 pass, unrounded between, with the one
+    mask ``row_mask`` (n weights) over 2**shift for both (the JAX
+    package's ``_make_conv_sep``); N from 1 to 17, N // 2 within the
+    layout's pad."""
+    row, col = window.separable_pair(layout, n, row_mask)
+    name, entry, extra = convolution_separated_launch(row, col, shift)
+    return window.layout_op(
+        layout, F32, name, lambda p: conv_sep_plain(p, row, col, shift),
+        lambda p: window._launch_window(name, entry, p, *extra))
 
 
 def gaussian_blur_3x3(planar: torch.Tensor) -> torch.Tensor:

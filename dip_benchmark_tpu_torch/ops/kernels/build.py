@@ -24,7 +24,8 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
-SOURCES = ("point.cu", "window.cu", "pipeline.cu", "f32.cu", "chain.cu")
+SOURCES = ("point.cu", "window.cu", "pipeline.cu", "f32.cu", "chain.cu",
+           "conv.cu")
 HEADERS = ("common.cuh", "words.cuh", "taps.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -67,6 +68,11 @@ SIGNATURES = {
     "dip_erosion_taps_f32": (_P, _P, _I, _I, _I, _P, _I, _P),
     "dip_chain_u8": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     "dip_chain_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _F, _F, _P),
+    "dip_conv_tile_dense_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P),
+    "dip_conv_tile_two_pass_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                                  _I, _I, _P),
+    "dip_conv_tile_dense_f32": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "dip_conv_tile_sep_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

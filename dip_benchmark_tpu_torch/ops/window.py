@@ -13,12 +13,24 @@ for a tensor on the card, and a plain PyTorch version (``*_plain``) of the
 same whole-buffer function that the wrapper takes only for a tensor on the
 CPU.
 
-``convolution`` routes a mask as the JAX package's ``make_convolution``
-routes it: a mask that ``factor_rank1_int`` splits into integer factors
-``outer(u, v)`` and that passes the packed-16 proof (``_packable``) runs
-the rank-1 body ``ConvRank1`` (``body_rank1``: a row pass with ``v``, a
-column pass with ``u``, one rounding); every other mask the general
-``ConvDense``. Both compute the dense correlation bit for bit.
+``convolution`` takes any mask of 1 to 17 taps a side and routes it as
+the JAX package's ``make_convolution`` routes it: a mask that
+``factor_rank1_int`` splits into integer factors ``outer(u, v)`` and that
+passes the packed-16 proof (``_packable``) runs a rank-1 form
+(``body_rank1``: a row pass with ``v``, a column pass with ``u``, one
+rounding), unless the caller names an ``acc_dtype``; every other mask a
+dense form. The 3x3 and 5x5 masks whose int32 sums cannot wrap run the
+strip bodies ``ConvRank1`` and ``ConvDense``; every other shape, and a
+mask whose sums can wrap, the tile kernels of ``csrc/conv.cu``
+(``conv_tile_two_pass_u8`` unrounded between the passes,
+``conv_tile_dense_u8``). ``convolution_separated`` runs K9 (a 1xN pass
+rounded to u8, then an Nx1 pass) on ``ConvSep<N>`` for N 3 and 5 and on
+``conv_tile_two_pass_u8`` rounded between the passes for every other N
+from 1 to 17. Every form computes the JAX function bit for bit, the int32
+wrap on overflow included. ``make_convolution`` and
+``make_convolution_separated_fused`` are the JAX package's builders: a
+function of a planar tensor on one layout, refusing a mask wider than the
+layout's pad.
 
 Beside the op matrix, the JAX package's library surface for morphology:
 ``make_erosion(layout, taps)`` and ``make_dilation(layout, taps)`` build
@@ -50,8 +62,8 @@ from .. import spec
 
 from . import kernels
 
-CONV_DENSE_SIZES = (3, 5)   # square mask sizes window.cu builds
-CONV_SEP_SIZES = (3, 5)
+STRIP_CONV_SIZES = (3, 5)   # square masks (and N) window.cu compiles in
+MAX_CONV_SIDE = 17          # conv.cu kMaxSide: 2 * the largest pad + 1
 MAX_TAP_RADIUS = 8          # taps.cuh kTapsMaxRadius
 # Structuring element -> (kernel name, C entry point) in window.cu.
 EROSION_KERNELS = (
@@ -99,9 +111,39 @@ def _no_interior(planar: torch.Tensor, hy: int, hx: int) -> bool:
     return hp <= 2 * hy or pitch <= 2 * hx
 
 
-def _round(acc: torch.Tensor, shift: int) -> torch.Tensor:
+def wraps(int_mask: np.ndarray, shift: int) -> bool:
+    """True where an int32 sum of ``int_mask`` over u8 data, plus the
+    rounding's half, can pass 2^31: the JAX kernels' sums wrap there."""
+    return 255 * int(np.abs(np.asarray(int_mask, np.int64)).sum()) + (
+        (1 << shift) >> 1) >= 1 << 31
+
+
+def clamps(int_mask: np.ndarray, shift: int) -> bool:
+    """Whether the JAX quantizer (``_packed_quantizer``) clamps a sum of
+    ``int_mask`` to [0, 255]: a negative weight, or a sum that can round
+    past 255. Where it does not, no sum that fits int32 leaves the range,
+    and a wrapped one is kept whole (its low byte is the output)."""
+    m = np.asarray(int_mask, np.int64)
     half = (1 << shift) >> 1
-    return torch.clamp((acc + half) >> shift, 0, 255)
+    return bool((m < 0).any()) or (
+        255 * int(m.clip(min=0).sum()) + half) >> shift > 255
+
+
+def _wrap32(acc: torch.Tensor) -> torch.Tensor:
+    """An int64 sum taken mod 2^32 as a signed int32 value."""
+    return ((acc + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _round(acc: torch.Tensor, shift: int, clamp: bool = True
+           ) -> torch.Tensor:
+    """(acc + half) >> shift, clamped to [0, 255] where ``clamp`` is set.
+    An int64 ``acc`` stands for an int32 sum that may wrap: it is wrapped
+    first."""
+    acc = acc + ((1 << shift) >> 1)
+    if acc.dtype == torch.int64:
+        acc = _wrap32(acc)
+    acc = acc >> shift
+    return torch.clamp(acc, 0, 255) if clamp else acc
 
 
 def erosion_plain(planar: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
@@ -124,18 +166,21 @@ def erosion_sep_plain(planar: torch.Tensor) -> torch.Tensor:
 
 def conv_dense_plain(planar: torch.Tensor, int_mask: np.ndarray,
                      shift: int) -> torch.Tensor:
-    """Dense correlation, int32 sum, one round-half-up, clamp."""
+    """Dense correlation anchored at ``(kh // 2, kw // 2)``: the int32 sum
+    (wrapping as the JAX kernels' does), one round-half-up, then the clamp
+    where the JAX quantizer clamps (``clamps``)."""
     kh, kw = int_mask.shape
     hy, hx = kh // 2, kw // 2
     if _no_interior(planar, hy, hx):
         return torch.zeros_like(planar)
-    wide = planar.to(torch.int32)
+    wide = planar.to(torch.int64 if wraps(int_mask, shift) else torch.int32)
     acc = 0
     for ky in range(kh):
         for kx in range(kw):
             acc = acc + int(int_mask[ky, kx]) * _tap(wide, hy, hx, ky - hy,
                                                      kx - hx)
-    return _framed(_round(acc, shift), planar, hy, hx)
+    return _framed(_round(acc, shift, clamps(int_mask, shift)), planar, hy,
+                   hx)
 
 
 def conv_rank1_plain(planar: torch.Tensor, u: np.ndarray, v: np.ndarray,
@@ -160,22 +205,28 @@ def conv_rank1_plain(planar: torch.Tensor, u: np.ndarray, v: np.ndarray,
 
 def conv_sep_plain(planar: torch.Tensor, row_mask: np.ndarray,
                    col_mask: np.ndarray, shift: int) -> torch.Tensor:
-    """1xN pass rounded and clamped to u8, then Nx1 pass, rounded again."""
+    """1xN pass rounded (and clamped to u8 where ``clamps`` says the JAX
+    quantizer clamps), then Nx1 pass, rounded again; int32 sums that wrap
+    as the JAX kernels' do."""
     wr, wc = np.ravel(row_mask), np.ravel(col_mask)
     n = len(wr)
     h = n // 2
     if _no_interior(planar, h, h):
         return torch.zeros_like(planar)
     _, hp, pitch = planar.shape
-    wide = planar.to(torch.int32)
+    wide64 = wraps(wr, shift) or wraps(wc, shift)
+    wide = planar.to(torch.int64 if wide64 else torch.int32)
     rows = 0
     for kx in range(n):
         rows = rows + int(wr[kx]) * wide[..., kx:pitch - 2 * h + kx]
-    rows = _round(rows, shift)          # every padded row, interior columns
+    # Every padded row, interior columns.
+    rows = _round(rows, shift, clamps(wr, shift))
     acc = 0
     for ky in range(n):
         acc = acc + int(wc[ky]) * rows[:, ky:hp - 2 * h + ky]
-    return _framed(_round(acc, shift), planar, h, h)
+        if wide64:   # a whole pass-1 value times a weight fits int64
+            acc = _wrap32(acc)
+    return _framed(_round(acc, shift, clamps(wc, shift)), planar, h, h)
 
 
 def blur3x3_plain(planar: torch.Tensor) -> torch.Tensor:
@@ -286,66 +337,178 @@ def rank1_factors(int_mask: np.ndarray):
     return _rank1_factors(*_mask_key(int_mask))
 
 
-def _check_conv_mask(int_mask: np.ndarray) -> None:
-    kh, kw = int_mask.shape
-    if kh != kw or kh not in CONV_DENSE_SIZES:
-        raise ValueError(f"no dense convolution kernel for a {kh}x{kw} "
-                         f"mask (square, sizes {CONV_DENSE_SIZES})")
+def check_conv_shape(kh: int, kw: int) -> None:
+    """Raise ValueError for a mask side outside 1..MAX_CONV_SIDE."""
+    if not (1 <= kh <= MAX_CONV_SIDE and 1 <= kw <= MAX_CONV_SIDE):
+        raise ValueError(f"no convolution kernel for a {kh}x{kw} mask "
+                         f"(sides 1 to {MAX_CONV_SIDE})")
 
 
-def convolution_launch(int_mask: np.ndarray, shift: int) -> tuple:
+def convolution_launch(int_mask: np.ndarray, shift: int,
+                       acc_dtype=None) -> tuple:
     """(kernel name, C entry point, its arguments after the geometry) of
-    ``convolution`` for this mask, built once per mask and shift."""
-    _check_conv_mask(int_mask)
-    return _convolution_launch(*_mask_key(int_mask), int(shift))
+    ``convolution`` for this mask, built once per mask and shift. Any
+    ``acc_dtype`` takes the dense form, as in ``make_convolution``."""
+    check_conv_shape(*int_mask.shape)
+    return _convolution_launch(*_mask_key(int_mask), int(shift),
+                               acc_dtype is not None)
 
 
 @functools.lru_cache(maxsize=256)
-def _convolution_launch(shape: tuple, data: bytes, shift: int) -> tuple:
+def _convolution_launch(shape: tuple, data: bytes, shift: int,
+                        dense: bool) -> tuple:
     int_mask = _mask_of(shape, data)
     kh, kw = shape
-    uv = _rank1_factors(shape, data)
-    if uv is not None:
-        return (f"window_u8<ConvRank1<{kh},{kw}>>", "dip_conv_rank1_u8",
-                (kh, kw, _int_array(uv[0]), _int_array(uv[1]), shift))
-    return (f"window_u8<ConvDense<{kh},{kw}>>", "dip_conv_dense_u8",
-            (kh, kw, _int_array(int_mask), shift))
+    uv = None if dense else _rank1_factors(shape, data)
+    if kh == kw and kh in STRIP_CONV_SIZES and not wraps(int_mask, shift):
+        if uv is not None:
+            return (f"window_u8<ConvRank1<{kh},{kw}>>", "dip_conv_rank1_u8",
+                    (kh, kw, _int_array(uv[0]), _int_array(uv[1]), shift))
+        return (f"window_u8<ConvDense<{kh},{kw}>>", "dip_conv_dense_u8",
+                (kh, kw, _int_array(int_mask), shift))
+    if uv is not None:   # packable: no sum wraps, and the clamp is exact
+        return ("conv_tile_two_pass_u8", "dip_conv_tile_two_pass_u8",
+                (kh, kw, _int_array(uv[0]), _int_array(uv[1]), shift, 0, 0,
+                 1))
+    return ("conv_tile_dense_u8", "dip_conv_tile_dense_u8",
+            (kh, kw, _int_array(int_mask), shift,
+             int(clamps(int_mask, shift))))
 
 
 def convolution_plain(planar: torch.Tensor, int_mask: np.ndarray,
-                      shift: int) -> torch.Tensor:
-    """The plain version of the body ``convolution`` routes the mask to."""
-    uv = rank1_factors(int_mask)
+                      shift: int, acc_dtype=None) -> torch.Tensor:
+    """The plain version of the form ``convolution`` routes the mask to."""
+    uv = None if acc_dtype is not None else rank1_factors(int_mask)
     if uv is not None:
         return conv_rank1_plain(planar, *uv, shift)
     return conv_dense_plain(planar, int_mask, shift)
 
 
-def convolution(planar: torch.Tensor, int_mask: np.ndarray,
-                shift: int) -> torch.Tensor:
-    """Dense correlation with a runtime integer mask, 3x3 or 5x5."""
+def convolution(planar: torch.Tensor, int_mask: np.ndarray, shift: int,
+                acc_dtype=None) -> torch.Tensor:
+    """Dense correlation with a runtime integer mask of 1 to 17 taps a
+    side, anchored at ``(kh // 2, kw // 2)``."""
     kernels.check_planar(planar)
-    _check_conv_mask(int_mask)
+    check_conv_shape(*int_mask.shape)
     if kernels.on_cpu(planar):
-        return convolution_plain(planar, int_mask, shift)
-    name, entry, extra = convolution_launch(int_mask, shift)
+        return convolution_plain(planar, int_mask, shift, acc_dtype)
+    name, entry, extra = convolution_launch(int_mask, shift, acc_dtype)
     return _launch_window(name, entry, planar, *extra)
+
+
+def separable_taps(row_mask: np.ndarray, col_mask: np.ndarray) -> int:
+    """N of a 1xN row mask and its Nx1 column mask; ValueError for any
+    other pair or an N outside 1..MAX_CONV_SIDE."""
+    n = row_mask.size
+    if row_mask.shape != (1, n) or col_mask.shape != (n, 1):
+        raise ValueError(f"no separable convolution kernel for masks "
+                         f"{row_mask.shape} and {col_mask.shape}")
+    check_conv_shape(n, n)
+    return n
+
+
+def convolution_separated_launch(row_mask: np.ndarray, col_mask: np.ndarray,
+                                 shift: int) -> tuple:
+    """(kernel name, C entry point, its arguments after the geometry) of
+    ``convolution_separated``, built once per pair of masks and shift."""
+    separable_taps(row_mask, col_mask)
+    return _separated_launch(_mask_key(row_mask), _mask_key(col_mask),
+                             int(shift))
+
+
+@functools.lru_cache(maxsize=256)
+def _separated_launch(row: tuple, col: tuple, shift: int) -> tuple:
+    row_mask, col_mask = _mask_of(*row), _mask_of(*col)
+    n = row_mask.size
+    if n in STRIP_CONV_SIZES and not (wraps(row_mask, shift)
+                                      or wraps(col_mask, shift)):
+        return (f"window_u8<ConvSep<{n}>>", "dip_conv_sep_u8",
+                (n, _int_array(row_mask), _int_array(col_mask), shift))
+    return ("conv_tile_two_pass_u8", "dip_conv_tile_two_pass_u8",
+            (n, n, _int_array(col_mask), _int_array(row_mask), shift, 1,
+             int(clamps(row_mask, shift)), int(clamps(col_mask, shift))))
 
 
 def convolution_separated(planar: torch.Tensor, row_mask: np.ndarray,
                           col_mask: np.ndarray, shift: int) -> torch.Tensor:
-    """1xN then Nx1 correlation, each pass rounded to u8, N in {3, 5}."""
+    """1xN then Nx1 correlation, each pass rounded to u8, N from 1 to 17."""
     kernels.check_planar(planar)
-    n = row_mask.size
-    if (row_mask.shape != (1, n) or col_mask.shape != (n, 1)
-            or n not in CONV_SEP_SIZES):
-        raise ValueError(f"no separable convolution kernel for masks "
-                         f"{row_mask.shape} and {col_mask.shape}")
+    separable_taps(row_mask, col_mask)
     if kernels.on_cpu(planar):
         return conv_sep_plain(planar, row_mask, col_mask, shift)
-    return _launch_window(f"window_u8<ConvSep<{n}>>", "dip_conv_sep_u8",
-                          planar, n, _int_array(row_mask),
-                          _int_array(col_mask), shift)
+    name, entry, extra = convolution_separated_launch(row_mask, col_mask,
+                                                      shift)
+    return _launch_window(name, entry, planar, *extra)
+
+
+def check_radius(layout, hy: int, hx: int, what: str) -> None:
+    """Raise ValueError where a window of ``hy`` rows and ``hx`` columns
+    on each side reaches past the layout's mirror halo."""
+    if hy > layout.pad or hx > layout.pad:
+        raise ValueError(
+            f"{what} radius (ry={hy}, rx={hx}) exceeds the layout halo "
+            f"(pad={layout.pad}); build the layout with pad={max(hy, hx)}")
+
+
+def layout_op(layout, dtype: torch.dtype, name: str, plain, launch):
+    """The op of one layout: a function of its ``(C, Hp, pitch)`` tensor of
+    ``dtype`` that runs ``plain`` on the CPU and ``launch`` on the card;
+    ``op.kernel`` names the kernel."""
+    def op(planar: torch.Tensor) -> torch.Tensor:
+        kernels.check_planar(planar, dtype=dtype)
+        if tuple(planar.shape) != layout.shape:
+            raise ValueError(f"built for {layout.shape}, got "
+                             f"{tuple(planar.shape)}")
+        if kernels.on_cpu(planar):
+            return plain(planar)
+        return launch(planar)
+
+    op.kernel = name
+    return op
+
+
+def make_convolution(layout, kh: int, kw: int, shift: int,
+                     int_mask: np.ndarray, acc_dtype=None):
+    """Dense kh x kw correlation on ``layout`` (the JAX package's
+    ``make_convolution``): 1 to 17 taps a side, the mask's half-sizes
+    within the layout's pad; any ``acc_dtype`` takes the dense form."""
+    int_mask = np.asarray(int_mask)
+    if int_mask.shape != (kh, kw):
+        raise ValueError(f"mask of shape {int_mask.shape}, want {(kh, kw)}")
+    check_conv_shape(kh, kw)
+    check_radius(layout, kh // 2, kw // 2, f"{kh}x{kw} mask")
+    name, entry, extra = convolution_launch(int_mask, shift, acc_dtype)
+    return layout_op(
+        layout, torch.uint8, name,
+        lambda p: convolution_plain(p, int_mask, shift, acc_dtype),
+        lambda p: _launch_window(name, entry, p, *extra))
+
+
+def separable_pair(layout, n: int, row_mask: np.ndarray) -> tuple:
+    """(1xN row mask, its Nx1 transpose) from the n weights of
+    ``row_mask``, the one mask the JAX builders take for both passes;
+    ValueError for another count, or an N past 17 or wider than the
+    layout's pad."""
+    row = np.asarray(row_mask).reshape(1, -1)
+    if row.shape[1] != n:
+        raise ValueError(f"row mask of {row.shape[1]} weights, want {n}")
+    col = np.ascontiguousarray(row.T)
+    separable_taps(row, col)
+    check_radius(layout, n // 2, n // 2, f"1x{n} mask")
+    return row, col
+
+
+def make_convolution_separated_fused(layout, n: int, row_mask: np.ndarray,
+                                     shift: int):
+    """The 1xN pass, rounded to u8, then the Nx1 pass, with the one mask
+    ``row_mask`` (n weights) for both, as the JAX package's
+    ``make_convolution_separated_fused`` takes it; N from 1 to 17, N // 2
+    within the layout's pad."""
+    row, col = separable_pair(layout, n, row_mask)
+    name, entry, extra = convolution_separated_launch(row, col, shift)
+    return layout_op(layout, torch.uint8, name,
+                     lambda p: conv_sep_plain(p, row, col, shift),
+                     lambda p: _launch_window(name, entry, p, *extra))
 
 
 def gaussian_blur_3x3(planar: torch.Tensor) -> torch.Tensor:
@@ -695,28 +858,14 @@ def make_morphology(layout, taps, reduce: str, dtype: str = "uint8"):
     taps = tuple((int(dy), int(dx)) for dy, dx in taps)
     if not taps:
         raise ValueError("empty structuring element")
-    hy = max(abs(dy) for dy, _ in taps)
-    hx = max(abs(dx) for _, dx in taps)
-    if hy > layout.pad or hx > layout.pad:
-        raise ValueError(
-            f"structuring element radius (ry={hy}, rx={hx}) exceeds the "
-            f"layout halo (pad={layout.pad}); build the layout with "
-            f"pad={max(hy, hx)}")
+    check_radius(layout, max(abs(dy) for dy, _ in taps),
+                 max(abs(dx) for _, dx in taps), "structuring element")
     name, entry, extra = morphology_launch(taps, reduce, dtype)
-    torch_dtype = torch.float32 if dtype == "float32" else torch.uint8
     plain_reduce = torch.minimum if reduce == "min" else torch.maximum
-
-    def op(planar: torch.Tensor) -> torch.Tensor:
-        kernels.check_planar(planar, dtype=torch_dtype)
-        if tuple(planar.shape) != layout.shape:
-            raise ValueError(f"built for {layout.shape}, got "
-                             f"{tuple(planar.shape)}")
-        if kernels.on_cpu(planar):
-            return morphology_plain(planar, taps, plain_reduce)
-        return _launch_window(name, entry, planar, *extra)
-
-    op.kernel = name
-    return op
+    return layout_op(
+        layout, torch.float32 if dtype == "float32" else torch.uint8, name,
+        lambda p: morphology_plain(p, taps, plain_reduce),
+        lambda p: _launch_window(name, entry, p, *extra))
 
 
 def make_erosion(layout, taps):

@@ -145,7 +145,8 @@ def jax_body(mask: np.ndarray, shift: int, monkeypatch) -> str:
     with monkeypatch.context() as m:
         m.setattr(jax_window, "_windowed_call",
                   lambda layout, hy, body, **kw: body.__name__)
-        return jax_window.make_convolution(jax_image.make_layout(16, 16),
+        return jax_window.make_convolution(jax_image.make_layout(16, 16,
+                                                                 halo=8),
                                            *mask.shape, shift, mask)
 
 
@@ -155,20 +156,48 @@ ROUTE_MASKS = [(FACTOR_MASKS[k], 4) for k in sorted(FACTOR_MASKS)
     (np.outer([1, 20, 1], [1, 20, 1]), 8),           # factors, not packable
     (np.outer([0, 1, 0], [100, 57, 100]), 8),        # sum 257
 ] + [random_mask(np.random.default_rng(s), n, k)
-     for s in (3, 4) for n in (3, 5) for k in KINDS]
+     for s in (3, 4) for n in (3, 5) for k in KINDS] + [
+    # Non-square, even and larger shapes: the tile kernels of conv.cu.
+    (np.outer([1, 2, 1], [1, 3, 3, 1, 0, 2, 1]), 5),    # 3x7, rank 1
+    (np.outer([2, 1], [1, 1, 2, 1]), 3),                # 2x4, rank 1
+    (np.outer([1] * 17, [1] * 15), 8),                  # 17x15, rank 1
+    (np.outer([3] * 9, [40] * 9), 8),                   # 9x9, not packable
+    (np.array([[1, -2, 1, 4]]), 2),                     # 1x4, negative
+    (np.arange(42).reshape(7, 6) % 5, 6),               # 7x6, rank 2
+    (np.outer([1, 2, 1], [1, 2, 1]) << 22, 4),          # 3x3 that wraps
+] + [(np.random.default_rng(s).integers(0, 4, (kh, kw)), 4)
+     for s, (kh, kw) in enumerate([(1, 1), (4, 9), (17, 17), (9, 2)])]
+
+
+def tile_rank1(name: str) -> bool:
+    """Whether the route ``name`` is a rank-1 form: ``ConvRank1`` or the
+    tile kernel's two passes (``convolution_launch`` never takes those
+    rounded between)."""
+    return name.startswith("window_u8<ConvRank1") or (
+        name == "conv_tile_two_pass_u8")
 
 
 @pytest.mark.parametrize("i", range(len(ROUTE_MASKS)))
 def test_convolution_routes_like_jax(i, monkeypatch):
     mask, shift = ROUTE_MASKS[i]
     mask = np.asarray(mask, np.int32)
-    name, entry, _ = window.convolution_launch(mask, shift)
+    name, entry, extra = window.convolution_launch(mask, shift)
     rank1 = jax_body(mask, shift, monkeypatch) == "body_rank1"
-    n = mask.shape[0]
-    assert (name == f"window_u8<ConvRank1<{n},{n}>>") == rank1
-    assert (entry == "dip_conv_rank1_u8") == rank1
-    if not rank1:
-        assert name == f"window_u8<ConvDense<{n},{n}>>"
+    kh, kw = mask.shape
+    assert tile_rank1(name) == rank1
+    strip = kh == kw and kh in window.STRIP_CONV_SIZES and not window.wraps(
+        mask, shift)
+    if strip:
+        assert (name == f"window_u8<ConvRank1<{kh},{kw}>>") == rank1
+        assert (entry == "dip_conv_rank1_u8") == rank1
+        if not rank1:
+            assert name == f"window_u8<ConvDense<{kh},{kw}>>"
+    else:
+        assert name == ("conv_tile_two_pass_u8" if rank1
+                        else "conv_tile_dense_u8")
+        assert entry == "dip_" + name
+    if name == "conv_tile_two_pass_u8":
+        assert extra[5] == 0   # unrounded between the passes
 
 
 def test_matrix_convolutions_route_to_rank1():
@@ -183,8 +212,6 @@ def test_matrix_convolutions_route_to_rank1():
 def test_convolution_plain_routes_equal_dense(i):
     mask, shift = ROUTE_MASKS[i]
     mask = np.asarray(mask, np.int32)
-    if mask.shape[0] not in window.CONV_DENSE_SIZES:
-        pytest.skip("no kernel for this size")
     planar = torch.from_numpy(np.random.default_rng(i).integers(
         0, 256, (2, 11, 16), np.uint8))
     assert torch.equal(window.convolution_plain(planar, mask, shift),

@@ -1,0 +1,444 @@
+"""Every mask shape of the JAX package's convolutions, in both data models.
+
+The JAX builders take any dense mask whose half-sizes fit the layout's halo
+(at most 8, so 1 to 17 taps a side, even and non-square included), any
+separable N with N // 2 within it, and an ``acc_dtype`` that routes a mask
+to the dense body. These tests hold the port's builders
+(``window.make_convolution``, ``window.make_convolution_separated_fused``,
+``f32.make_conv``, ``f32.make_conv_sep``) and its bare-tensor functions, on
+their plain versions, to the JAX kernels in Pallas interpret mode, on
+seeded 24x40 images baked on halo-8 layouts: the JAX bake is carried across
+with ``from_jax_planar`` (and is the port's own ``to_planar_padded``), and
+the two are compared on the crop.
+
+Tolerance: uint8 0 (both are exact integer arithmetic, the int32 wrap on
+overflow included). float32: a dense kh x kw mask of weights w within
+``kh * kw * 2**-24 * sum(|w|)``, and a separable pair within ``2 N *
+2**-24 * sum(|wr|) * sum(|wc|)``, on values in [0, 1]: the interpret run
+may contract a multiply-add into an FMA, which skips one rounding of a
+product, so each term may differ by an ulp of its size.
+
+The card-only tests at the end hold each kernel of ``csrc/conv.cu`` to its
+plain version at tolerance 0; they skip without a CUDA device.
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from dip_benchmark_tpu_torch import spec
+from dip_benchmark_tpu_torch.ops import f32, window
+from dip_benchmark_tpu_torch.utils.image import (from_jax_planar,
+                                                 make_layout,
+                                                 to_planar_padded,
+                                                 to_planar_padded_f32)
+
+try:
+    import jax.numpy as jnp
+
+    from dip_benchmark_tpu.ops.pallas import f32 as jax_f32
+    from dip_benchmark_tpu.ops.pallas import window as jax_window
+    from dip_benchmark_tpu.utils import image as jax_image
+except ImportError:   # a machine with a card and no JAX runs the card tests
+    jnp = jax_f32 = jax_window = jax_image = None
+
+H, W, PAD = 24, 40, 8
+DENSE_SHAPES = [(1, 1), (1, 3), (3, 1), (3, 5), (5, 3), (2, 4), (7, 5),
+                (7, 7), (9, 9), (1, 17), (17, 1), (17, 17)]
+SEP_NS = list(range(1, 18))   # every N the JAX builders take, even ones too
+RANK1_SHAPES = [(1, 3), (3, 5), (2, 4), (7, 5), (9, 9), (1, 17), (17, 17)]
+TILE = ("conv_tile_dense_u8", "conv_tile_two_pass_u8")
+
+
+@pytest.fixture(autouse=True)
+def _needs_jax(request):
+    if jax_window is None and request.node.get_closest_marker("cuda") is None:
+        pytest.skip("compares with the JAX package, which is not installed")
+
+
+def image(seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, (H, W, 3), np.uint8)
+
+
+def jax_layout(itemsize: int = 1):
+    return jax_image.make_layout(H, W, halo=PAD, itemsize=itemsize)
+
+
+def crop(planar: np.ndarray, lay) -> np.ndarray:
+    """The (C, H, W) image region of a JAX or port planar."""
+    py = getattr(lay, "pad_y", None) or lay.pad
+    px = getattr(lay, "pad_x", None) or lay.pad
+    return np.asarray(planar)[:, py:py + H, px:px + W]
+
+
+def run_u8(jax_build, port_build, img: np.ndarray):
+    """(JAX crop, port crop) of one uint8 op on ``img``: the JAX op on its
+    halo-8 bake, the port's on the same bake carried across."""
+    jl = jax_layout()
+    bake = jax_image.to_planar_padded(img, jl)
+    want = crop(jax_build(jl)(bake), jl)
+    layout = make_layout(H, W, pad=PAD)
+    planar = from_jax_planar(bake, jl, pad=PAD)
+    got = port_build(layout)(planar)
+    return want, crop(got.numpy(), layout)
+
+
+def run_f32(jax_build, port_build, img: np.ndarray):
+    jl = jax_layout(itemsize=4)
+    bake = jax_image.to_planar_padded_f32(img, jl)
+    want = crop(jax_build(jl)(bake), jl)
+    layout = make_layout(H, W, pad=PAD)
+    got = port_build(layout)(from_jax_planar(bake, jl, pad=PAD))
+    return want, crop(got.numpy(), layout)
+
+
+def random_mask(rng, kh: int, kw: int) -> np.ndarray:
+    """Weights of either sign: the dense form, clamping at both ends."""
+    return rng.integers(-40, 90, (kh, kw)).astype(np.int32)
+
+
+def rank1_mask(rng, kh: int, kw: int) -> np.ndarray:
+    """A nonnegative outer product within the packed-16 bound: the JAX
+    package's body_rank1."""
+    while True:
+        u = rng.integers(0, 3, kh)
+        v = rng.integers(0, 3, kw)
+        u[kh // 2] += 1
+        v[kw // 2] += 1
+        m = np.outer(u, v).astype(np.int32)
+        if 255 * int(m.sum()) < 1 << 16:
+            return m
+
+
+def test_port_bake_equals_jax_bake_on_halo_8():
+    jl = jax_layout()
+    img = image(0)
+    carried = from_jax_planar(jax_image.to_planar_padded(img, jl), jl,
+                              pad=PAD)
+    assert torch.equal(carried, to_planar_padded(img, make_layout(
+        H, W, pad=PAD)))
+
+
+# -- uint8 --------------------------------------------------------------------
+
+@pytest.mark.parametrize("kh,kw", DENSE_SHAPES)
+def test_dense_u8_matches_jax(kh, kw):
+    rng = np.random.default_rng(100 * kh + kw)
+    mask, shift = random_mask(rng, kh, kw), int(rng.integers(3, 9))
+    want, got = run_u8(
+        lambda jl: jax_window.make_convolution(jl, kh, kw, shift, mask),
+        lambda lay: window.make_convolution(lay, kh, kw, shift, mask),
+        image(kh * kw))
+    np.testing.assert_array_equal(got, want)
+    if (kh, kw) not in ((3, 3), (5, 5)):
+        assert window.convolution_launch(mask, shift)[0] in TILE
+
+
+@pytest.mark.parametrize("kh,kw", RANK1_SHAPES)
+def test_factoring_u8_matches_jax_and_routes_rank1(kh, kw, monkeypatch):
+    rng = np.random.default_rng(7 * kh + kw)
+    mask = rank1_mask(rng, kh, kw)
+    shift = int(rng.integers(1, 9))
+    assert jax_body(mask, shift, monkeypatch) == "body_rank1"
+    assert window.convolution_launch(mask, shift)[0] == (
+        "conv_tile_two_pass_u8")
+    want, got = run_u8(
+        lambda jl: jax_window.make_convolution(jl, kh, kw, shift, mask),
+        lambda lay: window.make_convolution(lay, kh, kw, shift, mask),
+        image(kh + kw))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", SEP_NS)
+def test_separable_u8_matches_jax(n):
+    # Odd n: weights of either sign (body_i32); even n: packable weights
+    # (body_packed), so both JAX bodies are met across the N.
+    rng = np.random.default_rng(n)
+    low = -6 if n % 2 else 0
+    row = rng.integers(low, 9, (1, n)).astype(np.int32)
+    row[0, n // 2] += 1
+    shift = int(rng.integers(2, 6))
+    want, got = run_u8(
+        lambda jl: jax_window.make_convolution_separated_fused(
+            jl, n, row, shift),
+        lambda lay: window.make_convolution_separated_fused(
+            lay, n, row, shift), image(50 + n))
+    np.testing.assert_array_equal(got, want)
+    name = window.convolution_separated_launch(row, row.T.copy(), shift)[0]
+    assert name == (f"window_u8<ConvSep<{n}>>" if n in (3, 5)
+                    else "conv_tile_two_pass_u8")
+
+
+def jax_acc_dtype(name: str):
+    return {"int16": jnp.int16, "int32": jnp.int32}[name]
+
+
+@pytest.mark.parametrize("acc", ["int16", "int32"])
+@pytest.mark.parametrize("kind", ["random", "factoring"])
+def test_acc_dtype_takes_the_dense_form_and_matches_jax(acc, kind):
+    rng = np.random.default_rng(3)
+    mask = (random_mask(rng, 7, 5) if kind == "random"
+            else rank1_mask(rng, 7, 5))
+    want, got = run_u8(
+        lambda jl: jax_window.make_convolution(
+            jl, 7, 5, 6, mask, acc_dtype=jax_acc_dtype(acc)),
+        lambda lay: window.make_convolution(lay, 7, 5, 6, mask,
+                                            acc_dtype=acc), image(9))
+    np.testing.assert_array_equal(got, want)
+    assert window.convolution_launch(mask, 6, acc)[0] == "conv_tile_dense_u8"
+
+
+def test_acc_dtype_keeps_3x3_on_the_dense_strip_body():
+    # The matrix's Gaussian factors; an acc_dtype sends it to ConvDense, as
+    # make_convolution sends it to body_i32.
+    assert window.convolution_launch(spec.BLUR_3X3_INT, 4, "int32")[0] == (
+        "window_u8<ConvDense<3,3>>")
+    assert window.convolution_launch(spec.BLUR_3X3_INT, 4)[0] == (
+        "window_u8<ConvRank1<3,3>>")
+
+
+# Masks whose int32 sums wrap: (label, mask, shift). The JAX quantizer
+# clamps the first two (a negative weight); the third, all nonnegative and
+# shifted by 31, it does not clamp, so the wrapped sum's low byte is the
+# output.
+OVERFLOW = [
+    ("5x5 of either sign", np.where(
+        np.arange(25).reshape(5, 5) % 3, 1 << 24, -(1 << 23)), 4),
+    ("7x3 of either sign", np.full((7, 3), 3 << 22) * np.array(
+        [1, -1, 1])[None, :], 20),
+    ("9x9 nonnegative, shift 31", np.full((9, 9), 1 << 23), 31),
+]
+
+
+@pytest.mark.parametrize("case", range(len(OVERFLOW)))
+def test_overflowing_mask_wraps_as_jax_does(case):
+    label, mask, shift = OVERFLOW[case]
+    mask = mask.astype(np.int32)
+    kh, kw = mask.shape
+    assert window.wraps(mask, shift), label
+    assert window.clamps(mask, shift) == (case < 2)
+    want, got = run_u8(
+        lambda jl: jax_window.make_convolution(jl, kh, kw, shift, mask),
+        lambda lay: window.make_convolution(lay, kh, kw, shift, mask),
+        image(70 + case))
+    np.testing.assert_array_equal(got, want)
+    # Even at 3x3 a wrapping mask leaves the strip body for the tile one.
+    assert window.convolution_launch(mask, shift)[0] == "conv_tile_dense_u8"
+
+
+def test_overflowing_separable_mask_wraps_as_jax_does():
+    row = np.array([[1 << 22, -(1 << 22), 3 << 21, 5, -(1 << 21)]], np.int32)
+    want, got = run_u8(
+        lambda jl: jax_window.make_convolution_separated_fused(jl, 5, row,
+                                                               3),
+        lambda lay: window.make_convolution_separated_fused(lay, 5, row, 3),
+        image(80))
+    np.testing.assert_array_equal(got, want)
+    assert window.convolution_separated_launch(row, row.T.copy(), 3)[0] == (
+        "conv_tile_two_pass_u8")
+
+
+@pytest.mark.parametrize("kh,kw", [(2, 4), (7, 5), (17, 1)])
+def test_bare_convolution_equals_the_builder(kh, kw):
+    rng = np.random.default_rng(kh * kw)
+    mask = random_mask(rng, kh, kw)
+    layout = make_layout(H, W, pad=PAD)
+    planar = to_planar_padded(image(1), layout)
+    assert torch.equal(window.convolution(planar, mask, 5),
+                       window.make_convolution(layout, kh, kw, 5,
+                                               mask)(planar))
+
+
+@pytest.mark.parametrize("kh,kw", [(2, 4), (4, 1), (7, 5), (6, 6), (1, 17)])
+def test_rank1_plain_equals_dense_at_any_anchor(kh, kw):
+    rng = np.random.default_rng(kh + 10 * kw)
+    mask = rank1_mask(rng, kh, kw)
+    u, v = window.factor_rank1_int(mask)
+    planar = torch.from_numpy(rng.integers(0, 256, (2, 21, 48), np.uint8))
+    assert torch.equal(window.conv_rank1_plain(planar, u, v, 4),
+                       window.conv_dense_plain(planar, mask, 4))
+
+
+# -- float32 ------------------------------------------------------------------
+
+def dense_atol(mask: np.ndarray, shift: int) -> float:
+    w = spec.mask_float(mask, shift)
+    return mask.size * 2.0 ** -24 * float(np.abs(w).sum())
+
+
+def sep_atol(row: np.ndarray, shift: int) -> float:
+    w = float(np.abs(spec.mask_float(row, shift)).sum())
+    return 2 * row.size * 2.0 ** -24 * w * w
+
+
+@pytest.mark.parametrize("kh,kw", DENSE_SHAPES)
+def test_dense_f32_matches_jax(kh, kw):
+    rng = np.random.default_rng(200 * kh + kw)
+    mask = rng.integers(-1000, 1001, (kh, kw)).astype(np.int32)
+    shift = 10
+    want, got = run_f32(lambda jl: jax_f32._make_conv(jl, mask, shift),
+                        lambda lay: f32.make_conv(lay, mask, shift),
+                        image(kh * kw + 1))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=dense_atol(mask, shift))
+    if (kh, kw) not in ((3, 3), (5, 5)):
+        assert f32.convolution_launch(mask, shift)[0] == (
+            "conv_tile_dense_f32")
+
+
+@pytest.mark.parametrize("n", SEP_NS)
+def test_separable_f32_matches_jax(n):
+    rng = np.random.default_rng(300 + n)
+    row = rng.integers(-1000, 1001, (1, n)).astype(np.int32)
+    want, got = run_f32(
+        lambda jl: jax_f32._make_conv_sep(jl, n, row, 10),
+        lambda lay: f32.make_conv_sep(lay, n, row, 10), image(90 + n))
+    np.testing.assert_allclose(got, want, rtol=0, atol=sep_atol(row, 10))
+    name = f32.convolution_separated_launch(row, row.T.copy(), 10)[0]
+    assert name == (f"window_f32<ConvSep<{n}>>" if n in (3, 5)
+                    else "conv_tile_sep_f32")
+
+
+def test_bare_f32_convolution_equals_the_builder():
+    mask = np.random.default_rng(5).integers(-9, 10, (3, 8)).astype(np.int32)
+    layout = make_layout(H, W, pad=PAD)
+    planar = to_planar_padded_f32(image(2), layout)
+    assert torch.equal(f32.convolution(planar, mask, 6),
+                       f32.make_conv(layout, mask, 6)(planar))
+
+
+# -- refusals -----------------------------------------------------------------
+
+def builders(pad: int):
+    """(label, build) for each builder on a pad-``pad`` layout, taking the
+    mask's side."""
+    lay = make_layout(H, W, pad=pad)
+    return [
+        ("u8 dense", lambda k: window.make_convolution(
+            lay, k, k, 4, np.ones((k, k), np.int32))),
+        ("u8 1xk", lambda k: window.make_convolution(
+            lay, 1, k, 4, np.ones((1, k), np.int32))),
+        ("u8 separable", lambda k: window.make_convolution_separated_fused(
+            lay, k, np.ones((1, k), np.int32), 4)),
+        ("f32 dense", lambda k: f32.make_conv(
+            lay, np.ones((k, 1), np.int32), 4)),
+        ("f32 separable", lambda k: f32.make_conv_sep(
+            lay, k, np.ones(k, np.int32), 4)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_builders_refuse_a_mask_wider_than_the_pad(i):
+    label, build = builders(2)[i]
+    build(5)   # radius 2 fits pad 2
+    for k in (6, 7, 17):
+        with pytest.raises(ValueError, match="exceeds the layout halo"):
+            build(k)
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_builders_refuse_a_side_past_17(i):
+    label, build = builders(8)[i]
+    build(17)
+    with pytest.raises(ValueError):
+        build(18)
+
+
+def test_bare_functions_refuse_a_side_past_17():
+    planar = torch.zeros((3, 40, 48), dtype=torch.uint8)
+    planar32 = torch.zeros((3, 40, 48), dtype=torch.float32)
+    for shape in ((18, 1), (1, 18), (0, 3), (18, 18)):
+        mask = np.ones(shape, np.int32)
+        with pytest.raises(ValueError, match="sides 1 to 17"):
+            window.convolution(planar, mask, 4)
+        with pytest.raises(ValueError, match="sides 1 to 17"):
+            f32.convolution(planar32, mask, 4)
+    row = np.ones((1, 18), np.int32)
+    for fn, p in ((window.convolution_separated, planar),
+                  (f32.convolution_separated, planar32)):
+        with pytest.raises(ValueError):
+            fn(p, row, row.T.copy(), 4)
+    for k in (1, 2, 9, 17):   # every side up to 17 is taken
+        mask = np.ones((k, 17 - k + 1), np.int32)
+        window.convolution(planar, mask, 4)
+        f32.convolution(planar32, mask, 4)
+
+
+def test_kernel_side_equals_the_wrappers():
+    src = os.path.join(os.path.dirname(window.__file__), "kernels", "csrc",
+                       "conv.cu")
+    with open(src) as f:
+        side = int(re.search(r"kMaxSide = (\d+);", f.read()).group(1))
+    assert side == window.MAX_CONV_SIDE == 2 * PAD + 1
+
+
+def jax_body(mask: np.ndarray, shift: int, monkeypatch) -> str:
+    """The name of the body make_convolution builds for ``mask``."""
+    with monkeypatch.context() as m:
+        m.setattr(jax_window, "_windowed_call",
+                  lambda layout, hy, body, **kw: body.__name__)
+        return jax_window.make_convolution(jax_layout(), *mask.shape, shift,
+                                           mask)
+
+
+# -- on the card --------------------------------------------------------------
+
+def card_cases(rng):
+    """(label, op on a planar tensor, its plain version, dtype) for each
+    kernel of csrc/conv.cu."""
+    cases = []
+    for kh, kw in ((2, 4), (7, 5), (17, 17), (1, 17)):
+        mask = random_mask(rng, kh, kw)
+        cases.append((f"u8 dense {kh}x{kw}",
+                      lambda p, m=mask: window.convolution(p, m, 6),
+                      lambda p, m=mask: window.conv_dense_plain(p, m, 6),
+                      torch.uint8))
+        fmask = rng.integers(-1000, 1001, (kh, kw)).astype(np.int32)
+        cases.append((f"f32 dense {kh}x{kw}",
+                      lambda p, m=fmask: f32.convolution(p, m, 10),
+                      lambda p, m=fmask: f32.conv_dense_plain(p, m, 10),
+                      torch.float32))
+    rank1 = rank1_mask(rng, 9, 7)
+    cases.append(("u8 rank 1 9x7",
+                  lambda p: window.convolution(p, rank1, 5),
+                  lambda p: window.convolution_plain(p, rank1, 5),
+                  torch.uint8))
+    for label, mask, shift in OVERFLOW:
+        mask = mask.astype(np.int32)
+        cases.append((f"u8 overflow {label}",
+                      lambda p, m=mask, s=shift: window.convolution(p, m, s),
+                      lambda p, m=mask, s=shift: window.conv_dense_plain(
+                          p, m, s), torch.uint8))
+    for n in (1, 8, 17):
+        row = rng.integers(-6, 9, (1, n)).astype(np.int32)
+        col = rng.integers(-6, 9, (n, 1)).astype(np.int32)
+        cases.append((f"u8 separable {n}",
+                      lambda p, r=row, c=col: window.convolution_separated(
+                          p, r, c, 3),
+                      lambda p, r=row, c=col: window.conv_sep_plain(
+                          p, r, c, 3), torch.uint8))
+        cases.append((f"f32 separable {n}",
+                      lambda p, r=row, c=col: f32.convolution_separated(
+                          p, r, c, 3),
+                      lambda p, r=row, c=col: f32.conv_sep_plain(
+                          p, r, c, 3), torch.float32))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 25, 48), (1, 70, 4112),
+                                   (3, 2357, 3520)])
+def test_conv_tile_kernels_match_plain_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(shape[1])
+    u8 = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).cuda()
+    f = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
+    for label, op, plain, dtype in card_cases(rng):
+        planar = u8 if dtype == torch.uint8 else f
+        got = op(planar)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(planar)), f"{label} on {shape}"

@@ -207,8 +207,10 @@ def test_check_planar_refuses_a_mixed_dtype(col, small_image):
 
 
 @pytest.mark.parametrize("masks", [
-    (np.ones((3, 5), np.int32), None),
-    (np.ones((7, 7), np.int32), None),
+    # Sides past 17 (every side 1 to 17 has a kernel), a pair that
+    # disagrees.
+    (np.ones((3, 18), np.int32), None),
+    (np.ones((18, 18), np.int32), None),
     (spec.BLUR_1X3_INT, spec.BLUR_5X1_INT),
 ])
 def test_f32_convolution_refuses_masks_without_a_kernel(masks, small_image):

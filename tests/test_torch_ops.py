@@ -107,10 +107,12 @@ def test_separable_convolution_rounds_between_passes(fundus_crop):
 
 
 @pytest.mark.parametrize("masks", [
-    (np.ones((2, 3), np.int32), None),
-    (np.ones((7, 7), np.int32), None),
-    (np.ones((3, 5), np.int32), None),
-    (np.ones((1, 1), np.int32), None),
+    # Sides past 17 or of 0 (every side 1 to 17 has a kernel:
+    # tests/test_torch_conv_shapes.py), separable pairs that disagree.
+    (np.ones((18, 18), np.int32), None),
+    (np.ones((1, 18), np.int32), None),
+    (np.ones((18, 3), np.int32), None),
+    (np.ones((0, 3), np.int32), None),
     (spec.BLUR_1X3_INT, spec.BLUR_5X1_INT),
     (spec.BLUR_3X1_INT, spec.BLUR_1X3_INT),
 ])
