@@ -156,6 +156,28 @@ csrc`` with nvcc, then, with no fallback anywhere:
    every kernel of the path launched, each row's µs printed; then the
    oracle that phase 4's ``--verify`` used, the oracles' times and the
    total;
+   [8s] ``models.wide.apply_streaming`` on the benchmark image for the 13
+   columns of ``WIDE_COLS`` in both models, in blocks of 512 and 1167 rows
+   (``STREAM_BLOCKS``; the second folds a 2-row remainder): the stitched
+   output equal to the whole-image op on the card (tolerance 0), the counts
+   zeroed before each call and equal to the op's own launches times the
+   blocks; the streamed and whole-image host ms per column and the host
+   bake's share of the streamed time;
+   [8t] (a) a raw planar ``TALL_SHAPE`` (6,400,000 rows, past every
+   launcher's old ``gridDim.y`` cap) in each model, made on the card from a
+   seeded generator: the 13 ops, C1-C4, the ``Taps`` kernel on the 5x5
+   diamond and ``conv.cu``'s dense 7x7 and separable N 7, each equal to its
+   plain version on the whole buffer (tolerance 0); (b) the CLI with
+   ``--rounds 2 --verify --pipeline --fuse`` on ``TALL_CLI``'s synthetic
+   fundus of each model (1,100,000 x 48 uint8, 300,000 x 48 float32, as
+   PPM), every kernel of the path launched; (c) ``apply_streaming`` with
+   its default blocks on those images for ``TALL_STREAMED``'s columns,
+   equal to the whole-image op;
+   [8o] a raw planar ``BIG_SHAPE`` (3, 36,000, 60,032) in each model, each
+   plane past 2^31 elements: the 13 ops on the whole buffer, each output
+   held to its plain version on three bands of 64 rows (the first, the one
+   across element 2^31 of the first plane, the last) computed from the
+   band and 2 rows of halo, tolerance 0, and freed before the next op;
 7. prints ``{"kernels": [...]}`` (56 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -180,12 +202,16 @@ import sys
 import time
 import types
 
+# OpenCV refuses to decode an image of more than 2^20 rows unless this is
+# set before it is imported; [8t]'s CLI images are taller.
+os.environ.setdefault("OPENCV_IO_MAX_IMAGE_HEIGHT", str(1 << 24))
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dip_benchmark_tpu_torch import cli, native, oracle, oracle_f32, spec
-from dip_benchmark_tpu_torch.models import batch, chain
+from dip_benchmark_tpu_torch.models import batch, chain, wide
 from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
                                                      fused_pipeline_plain)
 from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32, f32,
@@ -195,7 +221,8 @@ from dip_benchmark_tpu_torch.parallel.session import ShardedBenchmarkSession
 from dip_benchmark_tpu_torch.runtime import exec_timing
 from dip_benchmark_tpu_torch.session import (PIPELINE_DESCRIPTION,
                                              BenchmarkSession)
-from dip_benchmark_tpu_torch.utils.image import (from_planar_padded,
+from dip_benchmark_tpu_torch.utils.image import (crop_planar,
+                                                 from_planar_padded,
                                                  from_planar_padded_f32,
                                                  load_image, make_layout,
                                                  save_image,
@@ -1469,16 +1496,16 @@ def compare_f32_window_edges(rng) -> dict:
 
 
 def drive_main_path(model: Model, img, label, fuse, rounds: int = 50,
-                    name: str = "benchmark-image",
-                    extra=()) -> tuple[dict, dict]:
-    """Run the port's CLI once on ``img`` (saved as ``name``) with
-    ``--verify``, the pipeline row and the chain ``fuse`` in ``model``'s
-    data model, and ``extra`` flags; return that run's launch counts and
-    its rows' µs a round (``row_us``)."""
+                    name: str = "benchmark-image", extra=(),
+                    ext: str = ".png") -> tuple[dict, dict]:
+    """Run the port's CLI once on ``img`` (saved as ``name`` + ``ext``)
+    with ``--verify``, the pipeline row and the chain ``fuse`` in
+    ``model``'s data model, and ``extra`` flags; return that run's launch
+    counts and its rows' µs a round (``row_us``)."""
     tag = "-".join([name, model.dtype, *extra]).replace("--", "")
     dumps = fresh("dumps-" + tag)
     csv = fresh(f"results-{tag}.csv")
-    path = save_benchmark_image(img, name)
+    path = save_benchmark_image(img, name, ext)
     kernels.reset_launches()
     rc, text = run_cli([path, dumps, "--rounds", str(rounds),
                         "--verify", "--pipeline", "--fuse", ",".join(fuse),
@@ -1489,7 +1516,7 @@ def drive_main_path(model: Model, img, label, fuse, rounds: int = 50,
     check(len(rows) == 16, f"expected 16 table rows, got {len(rows)}")
     prefixes = [p for _, p, _ in spec.OPERATION_MATRIX if p] + [
         "pipeline", "chain"]
-    names = [f"{p}-{name}.png" for p in prefixes]
+    names = [f"{p}-{name}{ext}" for p in prefixes]
     missing = [n for n in names if not os.path.exists(os.path.join(dumps, n))]
     check(len(names) == 14 and not missing, f"missing dumps {missing}")
     with open(csv) as f:
@@ -1640,8 +1667,9 @@ def check_exec_rows(rows: list[dict], cols: list[str], what: str) -> None:
               f"{what}: unresolved --exec row {r}")
 
 
-def save_benchmark_image(img, name: str = "benchmark-image") -> str:
-    path = os.path.join(OUT, f"{name}.png")
+def save_benchmark_image(img, name: str = "benchmark-image",
+                         ext: str = ".png") -> str:
+    path = os.path.join(OUT, name + ext)
     save_image(path, img)
     return path
 
@@ -2148,6 +2176,310 @@ def drive_wide(models, smi) -> dict:
     return {"image": label, "runs": runs, "seconds": seconds}
 
 
+# [8s] Row-block streaming (models/wide.apply_streaming) on the benchmark
+# image: blocks of 512 rows (4 x 512 and 288 at 2336 rows) and of 1167 (its
+# 2-row remainder folds into the last block: 1167 + 1169).
+STREAM_BLOCKS = (512, 1167)
+# [8t] Heights past every launcher's old gridDim.y cap of 65,535 row
+# blocks: chain_u8's 96 rows a block capped it at 6,291,360 padded rows,
+# the most of any, so TALL_SHAPE, a raw planar at a narrow pitch, passes
+# them all. The CLI's images pass window_u8_strip's old cap (1,048,560
+# rows) in uint8 and window_f32_strip's (262,140) in float32; OpenCV reads
+# them only with OPENCV_IO_MAX_IMAGE_HEIGHT raised (top of this file), and
+# PNG holds no more than 2^20 rows for it, so they travel as PPM.
+TALL_SHAPE = (3, 6_400_000, 32)
+TALL_CLI = {"uint8": (1_100_000, 48), "float32": (300_000, 48)}
+TALL_STREAMED = (("float32", "Convolution-5x5"),
+                 ("float32", "Erosion-3x3-Square"),
+                 ("uint8", "Fused-Pipeline"))
+# [8o] Planes past 2^31 elements: 36,000 x 60,032 is 2,161,152,000 bytes a
+# uint8 plane, and as many floats (8.6 GB) a float32 one. The kernels run
+# on the whole buffer; their plain versions on crops with a halo of
+# BAND_HALO rows: the first BAND_ROWS rows, the band across element 2^31 of
+# the first plane, the last BAND_ROWS.
+BIG_SHAPE = (3, 36_000, 60_032)
+BAND_ROWS, BAND_HALO = 64, 2
+
+
+def whole_image(model: Model, img, col: str) -> tuple[np.ndarray, float]:
+    """The whole-image op on the card in apply_streaming's output form
+    (uint8 HWC, or the float32 (C, H, W) crop unquantised), and the host
+    ms of bake, copy, op and crop."""
+    t0 = time.perf_counter()
+    layout = make_layout(*img.shape[:2])
+    out = model.ops[col](model.bake(img, layout).cuda())
+    want = (from_planar_padded(out, layout) if model.dtype == "uint8"
+            else crop_planar(out, layout))
+    return want, 1e3 * (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def timed_bakes(bake_ms: list):
+    """Add the host ms of every block bake that apply_streaming makes
+    inside the block to ``bake_ms``."""
+    names = ("to_planar_padded", "to_planar_padded_f32")
+    real = {name: getattr(wide, name) for name in names}
+
+    def timed(fn):
+        def bake(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            bake_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return bake
+    for name in names:
+        setattr(wide, name, timed(real[name]))
+    try:
+        yield bake_ms
+    finally:
+        for name in names:
+            setattr(wide, name, real[name])
+
+
+def streamed(model: Model, img, col: str, block_rows: int,
+             per_application: dict) -> tuple[np.ndarray, float, float]:
+    """apply_streaming with the counts zeroed: its output, its host ms and
+    the ms of its host bakes, and a check that it launched the op's
+    kernels once a block."""
+    blocks = len(wide.block_starts(img.shape[0], block_rows)[1])
+    kernels.reset_launches()
+    with timed_bakes([]) as bake_ms:
+        t0 = time.perf_counter()
+        got = wide.apply_streaming(img, col, block_rows, model.dtype,
+                                   torch.device("cuda"))
+        ms = 1e3 * (time.perf_counter() - t0)
+    counts = dict(kernels.LAUNCHES)
+    want = {k: blocks * n for k, n in per_application.items()}
+    check(counts == want, f"[8s] {model.dtype} {col} in blocks of "
+          f"{block_rows}: launches {counts}, want {want}")
+    return got, ms, sum(bake_ms)
+
+
+def drive_streaming(models, img, label, smi) -> dict:
+    """[8s] apply_streaming for every column of WIDE_COLS in both models
+    in blocks of STREAM_BLOCKS: the stitched output equal to the
+    whole-image op on the card (tolerance 0), the launches the op's own
+    times the blocks; the streamed and whole-image host ms, and the share
+    of the streamed time that the host bake of the blocks takes."""
+    t0 = time.perf_counter()
+    h, w = img.shape[:2]
+    layout = make_layout(h, w)
+    rows = []
+    for model in models:
+        planar = model.bake(img, layout).cuda()
+        for col in wide.WIDE_COLS:
+            want, whole_ms = whole_image(model, img, col)
+            kernels.reset_launches()
+            model.ops[col](planar)
+            per_app = dict(kernels.LAUNCHES)
+            row = {"dtype": model.dtype, "col": col, "whole_ms": whole_ms,
+                   "launches": per_app}
+            for block_rows in STREAM_BLOCKS:
+                got, ms, bake_ms = streamed(model, img, col, block_rows,
+                                            per_app)
+                check(got.dtype == want.dtype and np.array_equal(got, want),
+                      f"[8s] {model.dtype} {col} in blocks of {block_rows} "
+                      f"differs from the whole-image op")
+                row[f"ms_{block_rows}"] = ms
+                row[f"bake_share_{block_rows}"] = bake_ms / ms
+            rows.append(row)
+        del planar
+    counts = [len(wide.block_starts(h, b)[1]) for b in STREAM_BLOCKS]
+    print(f"  {label}, blocks of {' and '.join(map(str, STREAM_BLOCKS))} "
+          f"rows ({' and '.join(map(str, counts))} blocks): every column "
+          f"equal to the whole-image op (tolerance 0), launches the op's "
+          f"times the blocks | {smi}")
+    print(f"    {'host ms':30s} | whole | " + " | ".join(
+        f"blocks {b} (bake share)" for b in STREAM_BLOCKS))
+    for r in rows:
+        cells = [f"{r[f'ms_{b}']:7.1f} ({r[f'bake_share_{b}']:.2f})"
+                 for b in STREAM_BLOCKS]
+        print(f"    {r['dtype'] + ' ' + r['col']:30s} | "
+              f"{r['whole_ms']:6.1f} | " + " | ".join(cells))
+    seconds = time.perf_counter() - t0
+    print(f"  [8s] took {seconds:.1f} s")
+    return {"image": label, "rows": rows, "seconds": seconds}
+
+
+def tall_cases(dtype: str, shape, rng) -> list:
+    """(label, kernel, op, plain version) for every launcher of data model
+    ``dtype`` on a raw planar of ``shape``: the 13 ops, the chains C1-C4,
+    the Taps kernel on the 5x5 diamond, and csrc/conv.cu's dense 7x7 and
+    separable N 7."""
+    f32m = dtype == "float32"
+    ops, plain, names = ((OPS_F32, PLAIN_F32, KERNELS_F32) if f32m
+                         else (OPS, PLAIN, KERNELS))
+    cases = [(col, names[col][0], ops[col], plain[col]) for col in ops]
+    for name, cols in CHAINS.items():
+        cases.append((name, CHAIN_KERNELS[dtype][0],
+                      raw_chain(shape, cols, dtype=dtype),
+                      lambda p, c=cols: chain.fused_chain_plain(p, c,
+                                                                dtype)))
+    taps = window.mask_to_taps(DIAMOND_5X5)
+    name, entry, extra = window.morphology_launch(taps, "min", dtype)
+    cases.append(("Erosion-5x5-Diamond", name,
+                  lambda p: window._launch_window(name, entry, p, *extra),
+                  lambda p: window.morphology_plain(p, taps, torch.minimum)))
+    mod = f32 if f32m else window
+    dense, shift = smooth_mask(rng, 7, 7)
+    cases.append(("dense 7x7", mod.convolution_launch(dense, shift)[0],
+                  lambda p: mod.convolution(p, dense, shift),
+                  lambda p: (mod.conv_dense_plain if f32m
+                             else mod.convolution_plain)(p, dense, shift)))
+    row = rng.integers(-6, 9, (1, 7)).astype(np.int32)
+    col = rng.integers(-6, 9, (7, 1)).astype(np.int32)
+    cases.append(("separable 7",
+                  mod.convolution_separated_launch(row, col, 3)[0],
+                  lambda p: mod.convolution_separated(p, row, col, 3),
+                  lambda p: mod.conv_sep_plain(p, row, col, 3)))
+    return cases
+
+
+def random_planar(shape, dtype: str, seed: int) -> torch.Tensor:
+    """A raw planar on the card from a seeded generator on the card:
+    uint8 bytes, or float32 in [0, 1)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    if dtype == "uint8":
+        x = torch.empty(shape, dtype=torch.uint8, device="cuda")
+        return x.random_(0, 256, generator=g)
+    x = torch.empty(shape, dtype=torch.float32, device="cuda")
+    return x.uniform_(0, 1, generator=g)
+
+
+def check_tall(dtype: str, shape, seed: int = 8) -> dict:
+    """[8t] (a): every case of ``tall_cases`` on a raw planar of ``shape``
+    made on the card, kernel against plain version on the whole buffer,
+    tolerance 0; the largest |kernel - plain| per kernel."""
+    planar = random_planar(shape, dtype, seed)
+    errs = {}
+    for what, name, fn, plain in tall_cases(dtype, shape,
+                                            np.random.default_rng(seed)):
+        got = fn(planar)
+        want = plain(planar)
+        torch.cuda.synchronize()
+        err = max_delta(got, want)
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(torch.equal(got, want), f"[8t] {name} ({what}) on a {dtype} "
+              f"{tuple(shape)} planar: kernel differs from its plain "
+              f"version (max |delta| {err})")
+        del got, want
+    return errs
+
+
+def drive_tall(models, smi) -> dict:
+    """[8t] (a) every launcher on TALL_SHAPE in both models; (b) the CLI
+    with --verify --pipeline --fuse on TALL_CLI's image of each model; (c)
+    apply_streaming with its default blocks on those images for the
+    columns of TALL_STREAMED, each equal to the whole-image op."""
+    t0 = time.perf_counter()
+    errs = {}
+    for model in models:
+        errs[model.dtype] = check_tall(model.dtype, TALL_SHAPE)
+        print(f"  (a) {model.dtype} raw planar {TALL_SHAPE}: "
+              f"{len(errs[model.dtype])} kernels (13 ops, C1-C4, a Taps "
+              f"element, two conv.cu shapes) equal to their plain versions, "
+              f"tolerance 0")
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    runs = []
+    by_dtype = {m.dtype: m for m in models}
+    images = {}
+    for model in models:
+        h, w = TALL_CLI[model.dtype]
+        img = synth_fundus(h, w)
+        images[model.dtype] = img
+        label = f"synth_fundus({h}x{w})"
+        t2 = time.perf_counter()
+        counts, rows = drive_main_path(
+            model, img, label, MAIN_CHAINS[model.dtype], rounds=2,
+            name="tall", ext=".ppm")
+        runs.append({"dtype": model.dtype, "image": label, "rows": rows,
+                     "launches": counts,
+                     "seconds": time.perf_counter() - t2})
+    print(f"  (b) the CLI, --verify passed on both images; "
+          f"{time.perf_counter() - t1:.1f} s")
+    streamed_rows = []
+    for dtype, col in TALL_STREAMED:
+        model, img = by_dtype[dtype], images[dtype]
+        want, whole_ms = whole_image(model, img, col)
+        blocks = len(wide.block_starts(img.shape[0], 2048)[1])
+        t2 = time.perf_counter()
+        got = wide.apply_streaming(img, col, dtype=dtype)
+        ms = 1e3 * (time.perf_counter() - t2)
+        check(np.array_equal(got, want), f"[8t] apply_streaming {dtype} "
+              f"{col} on {img.shape[0]}x{img.shape[1]} differs from the "
+              f"whole-image op")
+        streamed_rows.append({"dtype": dtype, "col": col, "blocks": blocks,
+                              "ms": ms, "whole_ms": whole_ms})
+        print(f"  (c) apply_streaming {dtype} {col} on {img.shape[0]}x"
+              f"{img.shape[1]}, {blocks} blocks of 2048: equal to the "
+              f"whole-image op; host ms {ms:.1f} (whole image "
+              f"{whole_ms:.1f})")
+    seconds = time.perf_counter() - t0
+    print(f"  [8t] took {seconds:.1f} s | {smi}")
+    return {"errs": errs, "cli": runs, "streamed": streamed_rows,
+            "seconds": seconds}
+
+
+def band_rows(hp: int, pitch: int) -> list[tuple[int, int]]:
+    """[8o]'s bands: the first BAND_ROWS rows, the BAND_ROWS across element
+    2^31 of the first plane, and the last BAND_ROWS."""
+    mid = (1 << 31) // pitch - BAND_ROWS // 2
+    return [(0, BAND_ROWS), (mid, mid + BAND_ROWS), (hp - BAND_ROWS, hp)]
+
+
+def check_big(model: Model, shape, seed: int = 31) -> dict:
+    """[8o] Each of the model's 13 ops on a raw planar of ``shape`` made on
+    the card, its plain version on each band of ``band_rows`` with its
+    halo, the kernel's rows of the band equal to it (tolerance 0); each
+    output freed before the next op."""
+    planar = random_planar(shape, model.dtype, seed)
+    hp, pitch = shape[1:]
+    errs = {}
+    for col, fn in model.ops.items():
+        got = fn(planar)
+        for a, b in band_rows(hp, pitch):
+            a0, b0 = max(0, a - BAND_HALO), min(hp, b + BAND_HALO)
+            want = model.plain[col](planar[:, a0:b0].contiguous())
+            band = got[:, a:b]
+            err = max_delta(band, want[:, a - a0:b - a0])
+            errs[col] = max(errs.get(col, 0.0), err)
+            check(torch.equal(band, want[:, a - a0:b - a0]),
+                  f"[8o] {model.dtype} {col} rows {a}-{b} of "
+                  f"{tuple(shape)}: kernel differs from its plain version "
+                  f"(max |delta| {err})")
+        del got, band  # a view of the output keeps it alive
+    del planar
+    torch.cuda.empty_cache()
+    return errs
+
+
+def drive_big(models, smi) -> dict:
+    """[8o] check_big on BIG_SHAPE in both models."""
+    t0 = time.perf_counter()
+    hp, pitch = BIG_SHAPE[1:]
+    out = {}
+    for model in models:
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        errs = check_big(model, BIG_SHAPE)
+        item = 4 if model.dtype == "float32" else 1
+        out[model.dtype] = {
+            "errs": errs, "plane_bytes": hp * pitch * item,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - t1}
+        print(f"  {model.dtype} {BIG_SHAPE}: {hp * pitch:,} elements "
+              f"({hp * pitch * item / 1e9:.2f} GB) a plane; 13 ops equal to "
+              f"their plain versions on rows {band_rows(hp, pitch)} "
+              f"(tolerance 0); peak {out[model.dtype]['peak_gb']:.1f} GB, "
+              f"{out[model.dtype]['seconds']:.1f} s")
+    seconds = time.perf_counter() - t0
+    print(f"  [8o] took {seconds:.1f} s | {smi}")
+    return {**out, "seconds": seconds}
+
+
 def device_ms(fn, planar, n: int) -> list[float]:
     """Device time of each of ``n`` launches of ``fn`` from CUDA events.
     A sleep kernel queued first keeps the card busy until the host has
@@ -2549,7 +2881,16 @@ def main() -> int:
                                        verify_sources.items()}
     print(f"[8w] widths past the JAX envelope: dip_benchmark_tpu_torch.cli."
           f"main on {WIDE_SHAPE[0]}x{WIDE_SHAPE[1]}")
-    wide = drive_wide([u8, f32], smi)
+    wide_run = drive_wide([u8, f32], smi)
+    print(f"[8s] row-block streaming: models.wide.apply_streaming on "
+          f"{label}, every column of WIDE_COLS in both models")
+    streaming = drive_streaming([u8, f32], img, label, smi)
+    print("[8t] tall images: every launcher past its old gridDim.y cap, "
+          "the CLI and apply_streaming")
+    tall = drive_tall([u8, f32], smi)
+    print("[8o] planes past 2^31 elements: the 13 ops of each model against "
+          "their plain versions on bands")
+    big = drive_big([u8, f32], smi)
 
     entries += conv_entries
     want = (26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
@@ -2565,7 +2906,8 @@ def main() -> int:
                    "main_path_launches": counts, "library_exec": library_exec,
                    "exec": exec_runs, "chained": chained,
                    "host_share": host_split, "sharded": sharded,
-                   "native_oracle": native_oracle, "wide": wide,
+                   "native_oracle": native_oracle, "wide": wide_run,
+                   "streaming": streaming, "tall": tall, "big": big,
                    "nvidia_smi": smi,
                    "image": label}, f, indent=1)
     print("[8n] --verify's oracle from phase 4 to 4s: " + "; ".join(

@@ -517,13 +517,14 @@ __device__ __forceinline__ uint32_t ring_keep(int gx, int words, int rx) {
 
 // in and out are (count * (kGray ? 3 : 1), hp, words) 32-bit words, words
 // a multiple of 4; the grid is (ceil(words / (kTileWords - 2 kHaloWords)),
-// ceil(hp / kTileRows), count) of kU8Block threads; dynamic shared memory
-// holds two (kTileRows + 2 ry) x kStride word buffers.
+// ceil(hp / kTileRows), count) of kU8Block threads, in runs of at most
+// 65,535 rows of tiles from row row0; dynamic shared memory holds two
+// (kTileRows + 2 ry) x kStride word buffers.
 template <bool kGray>
 __global__ void __launch_bounds__(kU8Block, kU8BlocksPerSM)
     chain_u8(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-             int hp, int words, const int* __restrict__ desc, int n_stages,
-             int ry, int rx, const U8Luma luma) {
+             int hp, int words, int row0, const int* __restrict__ desc,
+             int n_stages, int ry, int rx, const U8Luma luma) {
   using V = Vec::T;
   extern __shared__ uint4 smem_words[];
   const int bh = kTileRows + 2 * ry;
@@ -534,7 +535,7 @@ __global__ void __launch_bounds__(kU8Block, kU8BlocksPerSM)
   const size_t base = static_cast<size_t>(blockIdx.z) * (kGray ? 3 : 1) * plane;
   const uint32_t* src = in + base;
   uint32_t* dst = out + base;
-  const int y0 = blockIdx.y * kTileRows;
+  const int y0 = row0 + blockIdx.y * kTileRows;
   // The word of tile column 0, a multiple of kHaloWords; a vector of the
   // tile lies wholly inside a row or wholly outside it.
   const int x0 = blockIdx.x * (kTileWords - 2 * kHaloWords) - kHaloWords;
@@ -1336,18 +1337,20 @@ int launch_chain_u8(const void* in, void* out, int count, int hp, int pitch,
       !parse(desc_host, n_words, true, &n_stages, &ry, &rx) ||
       (n_stages == 0 && !gray))
     return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(const uint32_t*, uint32_t*, int, int, const int*, int, int,
-                 int, const U8Luma) = gray ? chain_u8<true> : chain_u8<false>;
+  void (*kernel)(const uint32_t*, uint32_t*, int, int, int, const int*, int,
+                 int, int, const U8Luma) =
+      gray ? chain_u8<true> : chain_u8<false>;
   const size_t smem =
       2 * static_cast<size_t>(kTileRows + 2 * ry) * kStride * sizeof(uint32_t);
   if (const int e = allow_smem(kernel, smem)) return e;
   const int words = pitch / 4, per_tile = kTileWords - 2 * kHaloWords;
-  const dim3 grid((words + per_tile - 1) / per_tile,
-                  (hp + kTileRows - 1) / kTileRows, count);
-  kernel<<<grid, kU8Block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), hp,
-      words, static_cast<const int*>(desc), n_stages, ry, rx, luma);
-  return dip::launch_status();
+  const unsigned int gx = (words + per_tile - 1) / per_tile;
+  return dip::launch_row_runs(hp, kTileRows, [&](unsigned int gy, int row0) {
+    kernel<<<dim3(gx, gy, count), kU8Block, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), hp,
+        words, row0, static_cast<const int*>(desc), n_stages, ry, rx, luma);
+  });
 }
 
 int launch_chain_f32(const void* in, void* out, int count, int hp, int pitch,

@@ -75,7 +75,7 @@ constexpr int kFrameCols = kTileCols + 2 * kHalo;   // 80
 constexpr int kSeg = 4 + 2 * kHalo;  // frame values 4 outputs read: 20
 constexpr int kGroups = kTileCols / 4;              // 4 outputs a group
 constexpr int kRowStep = kConvThreads / kGroups;    // 16
-constexpr int kMaxGridDim = 65535;                  // gridDim.y and .z
+constexpr int kMaxGridZ = 65535;                    // gridDim.z
 static_assert(kTileRows % kRowStep == 0, "every thread has whole rows");
 static_assert(kSeg % 4 == 0, "a segment is whole 16-byte loads");
 
@@ -115,8 +115,8 @@ struct Tile {
   size_t plane;
 };
 
-__device__ __forceinline__ Tile block_tile(int hp, int pitch) {
-  return {static_cast<int>(blockIdx.y) * kTileRows,
+__device__ __forceinline__ Tile block_tile(int hp, int pitch, int row0) {
+  return {row0 + static_cast<int>(blockIdx.y) * kTileRows,
           static_cast<int>(blockIdx.x) * kTileCols,
           static_cast<size_t>(blockIdx.z) * hp * pitch};
 }
@@ -243,11 +243,11 @@ struct SepF32 {
 
 __global__ void __launch_bounds__(kConvThreads)
     conv_tile_dense_u8(const uint8_t* __restrict__ in,
-                       uint8_t* __restrict__ out, int hp, int pitch,
+                       uint8_t* __restrict__ out, int hp, int pitch, int row0,
                        const __grid_constant__ DenseU8 a) {
   __shared__ __align__(16) int frame[kFrameRows * kFrameCols];
   __shared__ __align__(16) int ws[kMaxSide * kSeg];
-  const Tile t = block_tile(hp, pitch);
+  const Tile t = block_tile(hp, pitch, row0);
   const Ring g{hp, pitch, a.kh / 2, a.kw / 2};
   put_weights(a.w, a.kh, a.kw, ws);
   load_frame(in, hp, pitch, t, frame);
@@ -279,11 +279,11 @@ __global__ void __launch_bounds__(kConvThreads)
 
 __global__ void __launch_bounds__(kConvThreads)
     conv_tile_dense_f32(const float* __restrict__ in, float* __restrict__ out,
-                        int hp, int pitch,
+                        int hp, int pitch, int row0,
                         const __grid_constant__ DenseF32 a) {
   __shared__ __align__(16) float frame[kFrameRows * kFrameCols];
   __shared__ __align__(16) float ws[kMaxSide * kSeg];
-  const Tile t = block_tile(hp, pitch);
+  const Tile t = block_tile(hp, pitch, row0);
   const Ring g{hp, pitch, a.kh / 2, a.kw / 2};
   put_weights(a.w, a.kh, a.kw, ws);
   load_frame(in, hp, pitch, t, frame);
@@ -324,12 +324,12 @@ __global__ void __launch_bounds__(kConvThreads)
 __global__ void __launch_bounds__(kConvThreads)
     conv_tile_two_pass_u8(const uint8_t* __restrict__ in,
                           uint8_t* __restrict__ out, int hp, int pitch,
-                          const __grid_constant__ TwoPassU8 a) {
+                          int row0, const __grid_constant__ TwoPassU8 a) {
   __shared__ __align__(16) int frame[kFrameRows * kFrameCols];
   __shared__ __align__(16) int rows[kFrameRows * kTileCols];
   __shared__ __align__(16) int vs[kSeg];
   __shared__ int us[kMaxSide];
-  const Tile t = block_tile(hp, pitch);
+  const Tile t = block_tile(hp, pitch, row0);
   const Ring g{hp, pitch, a.kh / 2, a.kw / 2};
   put_weights(a.v, 1, a.kw, vs);
   if (threadIdx.x < a.kh) us[threadIdx.x] = a.u[threadIdx.x];
@@ -384,12 +384,13 @@ __global__ void __launch_bounds__(kConvThreads)
 
 __global__ void __launch_bounds__(kConvThreads)
     conv_tile_sep_f32(const float* __restrict__ in, float* __restrict__ out,
-                      int hp, int pitch, const __grid_constant__ SepF32 a) {
+                      int hp, int pitch, int row0,
+                      const __grid_constant__ SepF32 a) {
   __shared__ __align__(16) float frame[kFrameRows * kFrameCols];
   __shared__ __align__(16) float rows[kFrameRows * kTileCols];
   __shared__ __align__(16) float vs[kSeg];
   __shared__ float us[kMaxSide];
-  const Tile t = block_tile(hp, pitch);
+  const Tile t = block_tile(hp, pitch, row0);
   const Ring g{hp, pitch, a.n / 2, a.n / 2};
   put_weights(a.wr, 1, a.n, vs);
   if (threadIdx.x < a.n) us[threadIdx.x] = a.wc[threadIdx.x];
@@ -432,18 +433,16 @@ __global__ void __launch_bounds__(kConvThreads)
 
 // -- launch -----------------------------------------------------------------
 
-// The grid of one block a tile, or false for a buffer it cannot cover: a
-// pitch the 16-byte frame loads do not take (uint8: a multiple of 16
-// bytes; float32: of 4 floats), or more tile rows or planes than a grid
-// dimension holds.
-bool tile_grid(int channels, int hp, int pitch, int align, dim3& grid) {
-  if (channels < 1 || hp < 1 || pitch < align || pitch % align != 0)
-    return false;
-  const long rows = (static_cast<long>(hp) + kTileRows - 1) / kTileRows;
-  if (rows > kMaxGridDim || channels > kMaxGridDim) return false;
-  grid = dim3((pitch + kTileCols - 1) / kTileCols,
-              static_cast<unsigned>(rows), channels);
-  return true;
+// The columns of tiles of a buffer (gridDim.x), or 0 for one the tiles
+// cannot cover: a pitch the 16-byte frame loads do not take (uint8: a
+// multiple of 16 bytes; float32: of 4 floats), or more planes than
+// gridDim.z holds. Its rows of tiles go on gridDim.y in runs of at most
+// 65,535 (dip::launch_row_runs), so any height is covered.
+unsigned int tile_cols(int channels, int hp, int pitch, int align) {
+  if (channels < 1 || channels > kMaxGridZ || hp < 1 || pitch < align ||
+      pitch % align != 0)
+    return 0;
+  return (pitch + kTileCols - 1) / kTileCols;
 }
 
 bool side_ok(int n) { return n >= 1 && n <= kMaxSide; }
@@ -458,17 +457,17 @@ DIP_API int dip_conv_tile_dense_u8(const void* in, void* out, int channels,
                                    int hp, int pitch, int kh, int kw,
                                    const int* w, int shift, int clamp,
                                    void* stream) {
-  dim3 grid;
-  if (!side_ok(kh) || !side_ok(kw) || shift < 0 || shift > 31 ||
-      !tile_grid(channels, hp, pitch, 16, grid))
+  const unsigned int gx = tile_cols(channels, hp, pitch, 16);
+  if (!side_ok(kh) || !side_ok(kw) || shift < 0 || shift > 31 || gx == 0)
     return kInvalid;
   DenseU8 a{kh, kw, shift, clamp != 0, {}};
   for (int i = 0; i < kh * kw; ++i) a.w[i] = w[i];
-  conv_tile_dense_u8<<<grid, kConvThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp, pitch,
-      a);
-  return dip::launch_status();
+  return dip::launch_row_runs(hp, kTileRows, [&](unsigned int gy, int row0) {
+    conv_tile_dense_u8<<<dim3(gx, gy, channels), kConvThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp, pitch,
+        row0, a);
+  });
 }
 
 // The correlation with outer(u, v): a row pass with v (kw taps), rounded
@@ -479,50 +478,52 @@ DIP_API int dip_conv_tile_two_pass_u8(const void* in, void* out, int channels,
                                       const int* u, const int* v, int shift,
                                       int round_between, int clamp_rows,
                                       int clamp_out, void* stream) {
-  dim3 grid;
-  if (!side_ok(kh) || !side_ok(kw) || shift < 0 || shift > 31 ||
-      !tile_grid(channels, hp, pitch, 16, grid))
+  const unsigned int gx = tile_cols(channels, hp, pitch, 16);
+  if (!side_ok(kh) || !side_ok(kw) || shift < 0 || shift > 31 || gx == 0)
     return kInvalid;
   TwoPassU8 a{kh, kw, shift, round_between != 0, clamp_rows != 0,
               clamp_out != 0, {}, {}};
   for (int i = 0; i < kh; ++i) a.u[i] = u[i];
   for (int i = 0; i < kw; ++i) a.v[i] = v[i];
-  conv_tile_two_pass_u8<<<grid, kConvThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp, pitch,
-      a);
-  return dip::launch_status();
+  return dip::launch_row_runs(hp, kTileRows, [&](unsigned int gy, int row0) {
+    conv_tile_two_pass_u8<<<dim3(gx, gy, channels), kConvThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp, pitch,
+        row0, a);
+  });
 }
 
 // Dense kh x kw correlation with the float weights w, row-major.
 DIP_API int dip_conv_tile_dense_f32(const void* in, void* out, int channels,
                                     int hp, int pitch, int kh, int kw,
                                     const float* w, void* stream) {
-  dim3 grid;
-  if (!side_ok(kh) || !side_ok(kw) || !tile_grid(channels, hp, pitch, 4, grid))
-    return kInvalid;
+  const unsigned int gx = tile_cols(channels, hp, pitch, 4);
+  if (!side_ok(kh) || !side_ok(kw) || gx == 0) return kInvalid;
   DenseF32 a{kh, kw, {}};
   for (int i = 0; i < kh * kw; ++i) a.w[i] = w[i];
-  conv_tile_dense_f32<<<grid, kConvThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), hp, pitch, a);
-  return dip::launch_status();
+  return dip::launch_row_runs(hp, kTileRows, [&](unsigned int gy, int row0) {
+    conv_tile_dense_f32<<<dim3(gx, gy, channels), kConvThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
+        row0, a);
+  });
 }
 
 // 1xN pass with wr, then Nx1 pass with wc, unrounded between.
 DIP_API int dip_conv_tile_sep_f32(const void* in, void* out, int channels,
                                   int hp, int pitch, int n, const float* wr,
                                   const float* wc, void* stream) {
-  dim3 grid;
-  if (!side_ok(n) || !tile_grid(channels, hp, pitch, 4, grid))
-    return kInvalid;
+  const unsigned int gx = tile_cols(channels, hp, pitch, 4);
+  if (!side_ok(n) || gx == 0) return kInvalid;
   SepF32 a{n, {}, {}};
   for (int i = 0; i < n; ++i) {
     a.wr[i] = wr[i];
     a.wc[i] = wc[i];
   }
-  conv_tile_sep_f32<<<grid, kConvThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), hp, pitch, a);
-  return dip::launch_status();
+  return dip::launch_row_runs(hp, kTileRows, [&](unsigned int gy, int row0) {
+    conv_tile_sep_f32<<<dim3(gx, gy, channels), kConvThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
+        row0, a);
+  });
 }

@@ -162,13 +162,14 @@ struct MinSep {  // 3x1 column min, then 1x3 min over the column mins
   }
 };
 
-// in and out are (C, Hp, pitch); the grid is (pitch / 32, Hp / 8, C).
+// in and out are (C, Hp, pitch); the grid is (pitch / 32, Hp / 8, C), in
+// runs of at most 65,535 row blocks from row row0 (dip::launch_row_runs).
 template <class Body>
 __global__ void window_f32(const float* __restrict__ in,
                            float* __restrict__ out, int hp, int pitch,
-                           const Body body) {
+                           int row0, const Body body) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int y = row0 + blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= pitch || y >= hp) return;
   const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
   const Plane src{in + plane, pitch};
@@ -183,12 +184,13 @@ template <class Body>
 int launch_window(const void* in, void* out, int channels, int hp, int pitch,
                   const Body& body, void* stream) {
   const dim3 block(32, 8);
-  const dim3 grid((pitch + block.x - 1) / block.x,
-                  (hp + block.y - 1) / block.y, channels);
-  window_f32<Body><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
-      body);
-  return dip::launch_status();
+  const unsigned int gx = (pitch + block.x - 1) / block.x;
+  return dip::launch_row_runs(hp, block.y, [&](unsigned int gy, int row0) {
+    window_f32<Body><<<dim3(gx, gy, channels), block, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
+        row0, body);
+  });
 }
 
 // -- window_f32_strip: the convolution bodies ---------------------------------
@@ -435,16 +437,16 @@ __device__ __forceinline__ void strip_walk4(const Body& body,
 
 // in and out are (C, Hp, pitch), pitch a multiple of 4 kF32Vecs; the grid
 // is (pitch / (4 kF32Vecs kF32StripThreads), Hp / kF32StripRows, C),
-// rounded up.
+// rounded up, in runs of at most 65,535 strips from row row0.
 template <class Body>
 __global__ void __launch_bounds__(kF32StripThreads)
     window_f32_strip(const float* __restrict__ in, float* __restrict__ out,
-                     int hp, int pitch, const Body body) {
+                     int hp, int pitch, int row0, const Body body) {
   static_assert(Body::HX >= 1 && Body::HX <= 2,
                 "the neighbour lanes give 1 or 2 floats a side");
   const int lane = threadIdx.x & 31;
   const int v0 = (blockIdx.x * kF32StripThreads + threadIdx.x) * kF32Vecs;
-  const int y0 = blockIdx.y * kF32StripRows;
+  const int y0 = row0 + blockIdx.y * kF32StripRows;
   const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
   if (y0 >= Body::HY && y0 + kF32StripRows + Body::HY <= hp)
     strip_walk4<Body, false>(body, in + plane, out + plane, hp, pitch, v0,
@@ -459,13 +461,14 @@ int launch_strip(const void* in, void* out, int channels, int hp, int pitch,
                  const Body& body, void* stream) {
   if (pitch % kSpan != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int per_block = kF32StripThreads * kF32Vecs;
-  const dim3 grid((pitch / 4 + per_block - 1) / per_block,
-                  (hp + kF32StripRows - 1) / kF32StripRows, channels);
-  window_f32_strip<Body>
-      <<<grid, kF32StripThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
-          body);
-  return dip::launch_status();
+  const unsigned int gx = (pitch / 4 + per_block - 1) / per_block;
+  return dip::launch_row_runs(
+      hp, kF32StripRows, [&](unsigned int gy, int row0) {
+        window_f32_strip<Body><<<dim3(gx, gy, channels), kF32StripThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(in), static_cast<float*>(out), hp,
+            pitch, row0, body);
+      });
 }
 
 template <int KH, int KW>
@@ -523,10 +526,11 @@ __device__ __forceinline__ uint32_t mask4(float4 r, float4 g, float4 b,
 }
 
 // in and out are (batch, 3, hp, pitch); the grid is
-// (ceil(pitch / kTileW), ceil(hp / kTileH), batch).
+// (ceil(pitch / kTileW), ceil(hp / kTileH), batch), in runs of at most
+// 65,535 tile rows from row row0.
 __global__ void __launch_bounds__(kBlock)
     pipeline_f32(const float* __restrict__ in, float* __restrict__ out,
-                 int hp, int pitch, float wr, float wg, float wb) {
+                 int hp, int pitch, int row0, float wr, float wg, float wb) {
   __shared__ uint32_t mask_words[kMaskH][kMaskWords];
   __shared__ uint8_t ero[kEroH][kEroW];
 
@@ -535,7 +539,7 @@ __global__ void __launch_bounds__(kBlock)
   const float* src = in + image;
   float* dst = out + image;
   const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
+  const int y0 = row0 + blockIdx.y * kTileH;
 
   // 1. Grayscale and threshold. A group of four outside the buffer gets
   //    mask 0: it only reaches outputs in the ring, which are written 0. A
@@ -685,10 +689,11 @@ DIP_API int dip_pipeline_f32(const void* in, void* out, int batch, int hp,
                              void* stream) {
   if (batch < 1 || batch > 65535 || hp < 1 || pitch < 4 || pitch % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((pitch + kTileW - 1) / kTileW, (hp + kTileH - 1) / kTileH,
-                  batch);
-  pipeline_f32<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), hp, pitch, wr,
-      wg, wb);
-  return dip::launch_status();
+  const unsigned int gx = (pitch + kTileW - 1) / kTileW;
+  return dip::launch_row_runs(hp, kTileH, [&](unsigned int gy, int row0) {
+    pipeline_f32<<<dim3(gx, gy, batch), kBlock, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
+        row0, wr, wg, wb);
+  });
 }

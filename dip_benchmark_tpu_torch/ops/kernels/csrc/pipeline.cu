@@ -249,13 +249,13 @@ __device__ __forceinline__ void walk(const uint8_t* __restrict__ src,
 
 // in and out are (batch, 3, hp, pitch), pitch a multiple of 16; the grid is
 // (ceil(pitch / kTileW), ceil(hp / (kPipeWarps * kPipeRows)), batch) of
-// kBlock threads.
+// kBlock threads, in runs of at most 65,535 row blocks from row row0.
 template <int kAhead>
 __global__ void __launch_bounds__(kBlock)
     pipeline_u8(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                int hp, int pitch) {
+                int hp, int pitch, int row0) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int y0 = (blockIdx.y * kPipeWarps + warp) * kPipeRows;
+  const int y0 = row0 + (blockIdx.y * kPipeWarps + warp) * kPipeRows;
   if (y0 >= hp) return;  // a whole warp
   const size_t plane = static_cast<size_t>(hp) * pitch;
   const size_t image = static_cast<size_t>(blockIdx.z) * 3 * plane;
@@ -277,12 +277,14 @@ DIP_API int dip_pipeline_u8(const void* in, void* out, int batch, int hp,
                             int pitch, void* stream) {
   if (batch < 1 || batch > 65535 || hp < 1 || pitch < 16 || pitch % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((pitch + kTileW - 1) / kTileW,
-                  (hp + kPipeWarps * kPipeRows - 1) / (kPipeWarps * kPipeRows),
-                  batch);
-  void (*kernel)(const uint8_t*, uint8_t*, int, int) =
+  const unsigned int gx = (pitch + kTileW - 1) / kTileW;
+  void (*kernel)(const uint8_t*, uint8_t*, int, int, int) =
       batch == 1 ? pipeline_u8<kPipeAheadOne> : pipeline_u8<kPipeAhead>;
-  kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp, pitch);
-  return dip::launch_status();
+  return dip::launch_row_runs(
+      hp, kPipeWarps * kPipeRows, [&](unsigned int gy, int row0) {
+        kernel<<<dim3(gx, gy, batch), kBlock, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp,
+            pitch, row0);
+      });
 }

@@ -38,6 +38,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace dip {
 namespace taps {
 
@@ -120,12 +122,14 @@ struct Geometry {
   int hp, pitch, hy, hx, margin, fr;
 };
 
-// The tile of this block: blockIdx (column of tiles, row of tiles, plane).
+// The tile of this block: blockIdx (column of tiles, row of tiles from row
+// row0, plane).
 template <int kRows, class Pixel>
 __device__ Tile<Pixel> block_tile(const Pixel* in, Pixel* out,
-                                  const Geometry& g) {
+                                  const Geometry& g, int row0) {
   const size_t plane = static_cast<size_t>(blockIdx.z) * g.hp * g.pitch;
-  return {in + plane, out + plane, static_cast<int>(blockIdx.y) * kRows,
+  return {in + plane, out + plane,
+          row0 + static_cast<int>(blockIdx.y) * kRows,
           static_cast<int>(blockIdx.x) * (kTapsFrame - 2 * g.margin) -
               g.margin};
 }
@@ -285,8 +289,9 @@ struct F32Min {
 };
 
 // in and out are (C, Hp, pitch); the grid is one block a tile (the tiles
-// across a row of tiles first, then down, then the planes); dynamic shared
-// memory smem_bytes<E>. Each instruction's rows are cut into chunks of
+// across a row of tiles first, then down, then the planes), in runs of at
+// most 65,535 rows of tiles from row row0; dynamic shared memory
+// smem_bytes<E>. Each instruction's rows are cut into chunks of
 // kTapsChunk rows; a thread takes a chunk of one word column at a time and
 // reduces its rows together (independent loads in flight), reading past
 // the instruction's last row into the guard (never stored).
@@ -294,7 +299,7 @@ template <class E>
 __global__ void __launch_bounds__(kTapsThreads)
     window_taps(const typename E::Pixel* __restrict__ in,
                 typename E::Pixel* __restrict__ out, int hp, int pitch,
-                const __grid_constant__ Program prog) {
+                int row0, const __grid_constant__ Program prog) {
   using Word = typename E::Word;
   using Loads = typename E::Loads;
   constexpr int C = E::kCols, RC = kTapsChunk;
@@ -312,7 +317,7 @@ __global__ void __launch_bounds__(kTapsThreads)
   const Geometry g{hp, pitch, prog.hy, prog.hx, prog.margin,
                    E::kRows + 2 * prog.hy};
   const int fr = g.fr;
-  const auto tile = block_tile<E::kRows>(in, out, g);
+  const auto tile = block_tile<E::kRows>(in, out, g, row0);
   {
     typename Loads::Value v[Loads::kLoads];
     Loads::fetch(tile, g, v);
@@ -373,13 +378,13 @@ int launch(const void* in, void* out, int channels, int hp, int pitch,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int cols = kTapsFrame - 2 * prog.margin;
-  const dim3 grid((pitch + cols - 1) / cols,
-                  (hp + E::kRows - 1) / E::kRows, channels);
-  window_taps<E><<<grid, kTapsThreads, bytes,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const typename E::Pixel*>(in),
-      static_cast<typename E::Pixel*>(out), hp, pitch, prog);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned int gx = (pitch + cols - 1) / cols;
+  return launch_row_runs(hp, E::kRows, [&](unsigned int gy, int row0) {
+    window_taps<E><<<dim3(gx, gy, channels), kTapsThreads, bytes,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const typename E::Pixel*>(in),
+        static_cast<typename E::Pixel*>(out), hp, pitch, row0, prog);
+  });
 }
 
 }  // namespace taps

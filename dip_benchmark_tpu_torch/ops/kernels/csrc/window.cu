@@ -461,17 +461,18 @@ __device__ __forceinline__ void strip_walk(const Body& body,
 }
 
 // in and out are (C, Hp, pitch), pitch a multiple of 16; the grid is
-// (words / (W * kStripThreads), Hp / kStripRows, C), rounded up.
+// (words / (W * kStripThreads), Hp / kStripRows, C), rounded up, in runs of
+// at most 65,535 strips from row row0 (dip::launch_row_runs).
 template <class Body>
 __global__ void __launch_bounds__(kStripThreads)
     window_u8_strip(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                    int hp, int pitch, const Body body) {
+                    int hp, int pitch, int row0, const Body body) {
   static_assert(Body::HX >= 1 && Body::HX < 4,
                 "the neighbour words hold 1 to 3 bytes");
   const int words = pitch >> 2;
   const int lane = threadIdx.x & 31;
   const int wx = (blockIdx.x * kStripThreads + threadIdx.x) * Body::kWords;
-  const int y0 = blockIdx.y * kStripRows;
+  const int y0 = row0 + blockIdx.y * kStripRows;
   const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
   const uint32_t* src = reinterpret_cast<const uint32_t*>(in + plane);
   uint32_t* dst = reinterpret_cast<uint32_t*>(out + plane);
@@ -486,13 +487,13 @@ int launch_strip(const void* in, void* out, int channels, int hp, int pitch,
                  const Body& body, void* stream) {
   if (pitch % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int per_block = kStripThreads * Body::kWords;
-  const dim3 grid((pitch / 4 + per_block - 1) / per_block,
-                  (hp + kStripRows - 1) / kStripRows, channels);
-  window_u8_strip<Body>
-      <<<grid, kStripThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp,
-          pitch, body);
-  return dip::launch_status();
+  const unsigned int gx = (pitch / 4 + per_block - 1) / per_block;
+  return dip::launch_row_runs(hp, kStripRows, [&](unsigned int gy, int row0) {
+    window_u8_strip<Body><<<dim3(gx, gy, channels), kStripThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp,
+        pitch, row0, body);
+  });
 }
 
 template <int KH, int KW>

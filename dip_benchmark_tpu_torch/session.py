@@ -24,6 +24,7 @@ shape-changing op is detected and refused.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import numpy as np
@@ -56,6 +57,33 @@ def check_session_args(host_image: np.ndarray, dtype: str,
         raise ValueError(f"Unknown path: {path!r} (want kernel|library)")
 
 
+def check_fits(host_image: np.ndarray, dtype: str, path: str,
+               device: torch.device) -> None:
+    """Raise ValueError when a session's buffers on the card would not fit
+    in its free memory (``torch.cuda.mem_get_info``, plus what PyTorch's
+    allocator holds unused): the memory ops' payload, the working buffer
+    (the padded planar on the kernel path, the payload on the library
+    path) and one op's output of the same size. The port of the JAX
+    package's refusal of a buffer past its cap (``utils/image.py``
+    ``make_layout``)."""
+    h, w, c = host_image.shape
+    item = 4 if dtype == "float32" else 1
+    payload = h * w * c * item
+    work = (math.prod(make_layout(h, w, c).shape) * item if path == "kernel"
+            else payload)
+    need = payload + 2 * work
+    free = (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    if need > free:
+        raise ValueError(
+            f"{h}x{w}x{c} {dtype} needs {need / 2**30:.2f} GiB on {device} "
+            f"(payload, working buffer and one output); {free / 2**30:.2f} "
+            f"GiB are free. Apply an op in row blocks "
+            f"(models.wide.apply_streaming) or split the rows over more "
+            f"cards (--shards)")
+
+
 class BenchmarkSession:
     """Builds the 14-op table (15 rows with the pipeline) over a host
     image on ``device``.
@@ -74,10 +102,12 @@ class BenchmarkSession:
     def __init__(self, host_image: np.ndarray, device: torch.device,
                  dtype: str = "uint8", path: str = "kernel"):
         check_session_args(host_image, dtype, path)
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            check_fits(host_image, dtype, path, self.device)
         self.host_image = np.ascontiguousarray(host_image)
         self.dtype = dtype
         self.path = path
-        self.device = torch.device(device)
         f32 = dtype == "float32"
         if path == "library":
             # Full float32 in the library convolutions: cuDNN's default

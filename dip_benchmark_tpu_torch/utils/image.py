@@ -129,11 +129,16 @@ def make_layout(height: int, width: int, channels: int = 3,
     return PlanarLayout(height, width, channels, pad)
 
 
-def mirror_rows(layout: PlanarLayout) -> np.ndarray:
-    """Source image row of every padded row."""
+def mirror_rows(layout: PlanarLayout, row0: int = 0,
+                height: int | None = None) -> np.ndarray:
+    """Source image row of every padded row. With ``row0`` and the full
+    image's ``height`` the layout is a row block of that image from row
+    ``row0`` on: its pad rows are the image's true neighbour rows inside
+    it and the spec's mirror past its edges (the JAX package's
+    ``models/wide.to_wide_resident`` rule)."""
+    h = layout.height if height is None else height
     return np.clip(spec.mirror_index(
-        np.arange(layout.padded_height) - layout.pad, layout.height),
-        0, layout.height - 1)
+        row0 + np.arange(layout.padded_height) - layout.pad, h), 0, h - 1)
 
 
 def mirror_cols(layout: PlanarLayout) -> np.ndarray:
@@ -144,12 +149,21 @@ def mirror_cols(layout: PlanarLayout) -> np.ndarray:
         0, layout.width - 1)
 
 
-def to_planar_padded(image: np.ndarray, layout: PlanarLayout) -> torch.Tensor:
-    """HWC uint8 -> ``(C, Hp, pitch)`` uint8 CPU tensor, mirror halo baked."""
-    if image.shape != (layout.height, layout.width, layout.channels):
-        raise ValueError(f"image {image.shape} does not fit {layout}")
+def to_planar_padded(image: np.ndarray, layout: PlanarLayout,
+                     row0: int = 0) -> torch.Tensor:
+    """HWC uint8 -> ``(C, Hp, pitch)`` uint8 CPU tensor, mirror halo baked.
+
+    ``row0``: ``layout`` covers the rows ``[row0, row0 + layout.height)``
+    of ``image`` (a row block of ``models/wide.apply_streaming``), whose
+    pad rows come from the whole image (``mirror_rows``); the default
+    bakes the whole image."""
+    h, w, c = image.shape
+    if ((w, c) != (layout.width, layout.channels) or row0 < 0
+            or row0 + layout.height > h):
+        raise ValueError(f"image {image.shape} from row {row0} does not "
+                         f"fit {layout}")
     planar = np.transpose(image, (2, 0, 1))
-    ys, xs = mirror_rows(layout), mirror_cols(layout)
+    ys, xs = mirror_rows(layout, row0, h), mirror_cols(layout)
     return torch.from_numpy(
         np.ascontiguousarray(planar[:, ys[:, None], xs[None, :]]))
 
@@ -168,6 +182,14 @@ def stack_planar_padded(images: np.ndarray, layout: PlanarLayout,
     return stack
 
 
+def crop_planar(planar: torch.Tensor, layout: PlanarLayout) -> np.ndarray:
+    """``(C, Hp, pitch)`` on any device -> the ``(C, H, W)`` host array of
+    its valid region, its dtype kept (the float32 model's native output,
+    unquantised)."""
+    p = layout.pad
+    return planar[:, p:p + layout.height, p:p + layout.width].cpu().numpy()
+
+
 def from_planar_padded(planar: torch.Tensor,
                        layout: PlanarLayout) -> np.ndarray:
     """``(C, Hp, pitch)`` or ``(B, C, Hp, pitch)`` on any device -> HWC or
@@ -177,13 +199,14 @@ def from_planar_padded(planar: torch.Tensor,
     return valid.movedim(-3, -1).contiguous().cpu().numpy()
 
 
-def to_planar_padded_f32(image: np.ndarray,
-                         layout: PlanarLayout) -> torch.Tensor:
+def to_planar_padded_f32(image: np.ndarray, layout: PlanarLayout,
+                         row0: int = 0) -> torch.Tensor:
     """HWC uint8 -> ``(C, Hp, pitch)`` float32 CPU tensor in [0, 1], the
     uint8 bake divided by 255 in NumPy (exact per element: u8 / 255
     commutes with the mirror gather). The division stays on the host: a
-    division on the card need not round as NumPy's does."""
-    baked = to_planar_padded(image, layout).numpy()
+    division on the card need not round as NumPy's does. ``row0`` as in
+    ``to_planar_padded``."""
+    baked = to_planar_padded(image, layout, row0).numpy()
     return torch.from_numpy(baked.astype(np.float32) / np.float32(255))
 
 
@@ -252,10 +275,9 @@ def to_resident_planar(planar: np.ndarray, layout: PlanarLayout,
         raise ValueError(f"{layout} is not the per-shard layout of {n} "
                          f"shards of {h}x{w}")
     xs = mirror_cols(layout)
-    rows = np.arange(layout.padded_height) - layout.pad
     return tuple(torch.from_numpy(np.ascontiguousarray(planar[
-        ..., np.clip(spec.mirror_index(i * h_loc + rows, h), 0, h - 1)[:, None],
-        xs[None, :]])) for i in range(n))
+        ..., mirror_rows(layout, i * h_loc, h)[:, None], xs[None, :]]))
+        for i in range(n))
 
 
 def from_resident_planar(blocks, layout: PlanarLayout, h_loc: int,

@@ -60,6 +60,7 @@ def test_port_imports_neither_jax_nor_triton():
         "import dip_benchmark_tpu_torch.ops.f32\n"
         "import dip_benchmark_tpu_torch.models.batch\n"
         "import dip_benchmark_tpu_torch.models.pipeline\n"
+        "import dip_benchmark_tpu_torch.models.wide\n"
         "import dip_benchmark_tpu_torch.ops.library\n"
         "import dip_benchmark_tpu_torch.ops.library_f32\n"
         "import dip_benchmark_tpu_torch.runtime.aot\n"
