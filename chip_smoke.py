@@ -67,18 +67,22 @@ csrc`` with nvcc, then, with no fallback anywhere:
    [3l] the tile kernels of ``csrc/conv.cu`` (every mask shape the JAX
    package builds that the strip bodies do not): every dense kh x kw with
    sides in ``CONV_SIDES`` (1, 2, 3, 5, 7, 9, 17) in both models, random
-   weights of either sign, factoring masks (the two-pass form unrounded
+   weights of either sign (uint8: the int8 tensor-core body), and in
+   uint8 the same shapes with one weight of +-200 (the IMAD body), masks of
+   int8's end weights, factoring masks (the two-pass form unrounded
    between), separable N 1 to 17 (odd) in both models, an ``acc_dtype``,
-   masks whose int32 sums wrap, at ``EDGE_IMAGES`` on pad-8 layouts (raw
-   buffers of that shape where an image is smaller than 9) and
-   ``EDGE_BUFFERS``, whole buffer, tolerance 0; then ``CONV_TIMED`` (7x7,
-   17x17, 1x17 dense, separable N 9 and 17, both models) through the
-   builders on the pad-8 planar ``(3, 2352, 3520)`` of the benchmark
-   image, driven once with the counts zeroed (each of the four kernels
-   launched), every output equal to its plain version, the same builders'
-   crops on 37x53 equal to the oracle, and each timed as phase 6 times
-   (kernel, plain, and for float32 one depthwise ``F.conv2d``) beside its
-   bound;
+   masks whose int32 sums wrap (the IMAD body), at ``EDGE_IMAGES`` on pad-8
+   layouts (raw buffers of that shape where an image is smaller than 9)
+   and ``EDGE_BUFFERS``, whole buffer, tolerance 0; every kh x kw of
+   1..17 on each dense body (``compare_dense_sides``, so that every
+   instantiation runs) on ``DENSE_SIDES_SHAPE``; then ``CONV_TIMED``
+   (7x7, 17x17, 1x17 dense, separable N 9 and 17, both models; the three
+   dense uint8 shapes again with a weight of 200) through the builders on
+   the pad-8 planar ``(3, 2352, 3520)`` of the benchmark image, driven
+   once with the counts zeroed (each of the five kernels launched), every
+   output equal to its plain version, the same builders' crops on 37x53
+   equal to the oracle, and each timed as phase 6 times (kernel, plain,
+   and for float32 one depthwise ``F.conv2d``) beside its bound;
 4. drives the port's CLI once at full size (``--rounds 50 --verify
    --pipeline --fuse C1 --csv``) with the launch counts zeroed, and
    requires exit 0, 16 table rows, 14 image dumps, a CSV row with neither
@@ -166,8 +170,9 @@ csrc`` with nvcc, then, with no fallback anywhere:
    [8t] (a) a raw planar ``TALL_SHAPE`` (6,400,000 rows, past every
    launcher's old ``gridDim.y`` cap) in each model, made on the card from a
    seeded generator: the 13 ops, C1-C4, the ``Taps`` kernel on the 5x5
-   diamond and ``conv.cu``'s dense 7x7 and separable N 7, each equal to its
-   plain version on the whole buffer (tolerance 0); (b) the CLI with
+   diamond and ``conv.cu``'s dense 7x7 (uint8: on both dense bodies, the
+   int8 tensor cores and IMAD) and separable N 7, each equal to its plain
+   version on the whole buffer (tolerance 0); (b) the CLI with
    ``--rounds 2 --verify --pipeline --fuse`` on ``TALL_CLI``'s synthetic
    fundus of each model (1,100,000 x 48 uint8, 300,000 x 48 float32, as
    PPM), every kernel of the path launched; (c) ``apply_streaming`` with
@@ -178,7 +183,7 @@ csrc`` with nvcc, then, with no fallback anywhere:
    held to its plain version on three bands of 64 rows (the first, the one
    across element 2^31 of the first plane, the last) computed from the
    band and 2 rows of halo, tolerance 0, and freed before the next op;
-7. prints ``{"kernels": [...]}`` (56 entries, each with its ``dtype``),
+7. prints ``{"kernels": [...]}`` (59 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -413,19 +418,30 @@ RANDOM_ELEMENT_IMAGES = ((9, 9), (37, 53), (70, 150), (133, 301))
 # image is too small for a pad-8 bake) and EDGE_BUFFERS; then, at full size,
 # CONV_TIMED through the builders, timed.
 CONV_PAD = 8
+# [3l]'s sweep of every mask shape on each dense body: a partial 64-row
+# tile and a 48-column pitch, two planes.
+DENSE_SIDES_SHAPE = (2, 129, 48)
 CONV_SIDES = (1, 2, 3, 5, 7, 9, 17)
 CONV_SEP_NS = tuple(range(1, 18, 2))
-# (label, data model, form, mask side(s) or N) timed at full size.
+# (label, data model, form, mask side(s) or N) timed at full size; "wide":
+# the dense uint8 form with one weight outside int8 (the IMAD body).
 CONV_TIMED = [(f"{kind} {shape}", dtype, kind, shape)
               for dtype in ("uint8", "float32")
               for kind, shape in (("dense", (7, 7)), ("dense", (17, 17)),
                                   ("dense", (1, 17)), ("separable", 9),
-                                  ("separable", 17))]
+                                  ("separable", 17))] + [
+    (f"wide {shape}", "uint8", "wide", shape)
+    for shape in ((7, 7), (17, 17), (1, 17))]
 # kernel -> (file:line and name of the TPU kernel it replaces).
 CONV_TPU = {
     "conv_tile_dense_u8": ("ops/pallas/window.py:491",
                            "make_convolution (body_packed :562, body_i32 "
-                           ":581, any acc_dtype), shapes past 3x3, 5x5"),
+                           ":581, any acc_dtype), shapes past 3x3, 5x5, "
+                           "a weight outside int8"),
+    "conv_tile_dense_mma_u8": ("ops/pallas/window.py:491",
+                               "make_convolution (body_packed :562, "
+                               "body_i32 :581, any acc_dtype), shapes past "
+                               "3x3, 5x5, every weight in int8"),
     "conv_tile_two_pass_u8": ("ops/pallas/window.py:606",
                               "make_convolution_separated_fused (every N "
                               "but 3, 5); make_convolution body_rank1 :541"),
@@ -982,14 +998,21 @@ def conv_edge_inputs(rng, dtype: str) -> list:
     return out
 
 
-def smooth_mask(rng, kh: int, kw: int) -> tuple:
+def smooth_weights(rng, kh: int, kw: int, anchor: int = 16) -> tuple:
     """(mask, shift): nonnegative weights summing to about 1 << shift (a
-    user's smoothing filter), their sum past the packed-16 bound, so that
-    the mask takes the dense form, as a row mask 1xN must to."""
+    user's smoothing filter), ``anchor`` more at the anchor. The default
+    weights (8 to 55) fit int8; an anchor of 200 puts one outside it."""
     m = rng.integers(8, 40, (kh, kw)).astype(np.int32)
-    m[kh // 2, kw // 2] += 16
-    check(window.rank1_factors(m) is None, f"{m.tolist()} takes rank 1")
+    m[kh // 2, kw // 2] += anchor
     return m, int(round(np.log2(m.sum())))
+
+
+def smooth_mask(rng, kh: int, kw: int, anchor: int = 16) -> tuple:
+    """``smooth_weights`` whose sum is past the packed-16 bound, so that
+    the mask takes the dense form, as a row mask 1xN must to."""
+    m, shift = smooth_weights(rng, kh, kw, anchor)
+    check(window.rank1_factors(m) is None, f"{m.tolist()} takes rank 1")
+    return m, shift
 
 
 def conv_tile_cases(rng) -> list:
@@ -1012,6 +1035,10 @@ def conv_tile_cases(rng) -> list:
         for kw in CONV_SIDES:
             u8(f"{kh}x{kw}", rng.integers(-40, 90, (kh, kw)).astype(
                 np.int32), int(rng.integers(3, 9)))
+            wide = rng.integers(-40, 90, (kh, kw)).astype(np.int32)
+            wide[kh // 2, kw // 2] = 200 if (kh + kw) % 2 else -200
+            u8(f"{kh}x{kw}, a weight outside int8", wide,
+               int(rng.integers(5, 10)))
             fm = rng.integers(-1000, 1001, (kh, kw)).astype(np.int32)
             cases.append((f"{kh}x{kw}", "float32",
                           f32.convolution_launch(fm, 10)[0],
@@ -1022,6 +1049,9 @@ def conv_tile_cases(rng) -> list:
         u[kh // 2], v[kw // 2] = 1, 1
         u8(f"rank 1 {kh}x{kw}", np.outer(u, v).astype(np.int32),
            int(rng.integers(1, 6)))
+    for kh, kw in ((9, 3), (1, 17), (17, 17)):
+        ends = np.resize(np.array([-128, 127, 127, -128, 5]), (kh, kw))
+        u8(f"int8 ends {kh}x{kw}", ends.astype(np.int32), 8)
     u8("acc_dtype int32 7x7", np.outer([1, 2, 3, 4, 3, 2, 1],
                                        [1, 1, 2, 2, 2, 1, 1]).astype(
         np.int32), 6, "int32")
@@ -1055,6 +1085,55 @@ def conv_tile_cases(rng) -> list:
     return cases
 
 
+def compare_dense_sides(rng, shape=DENSE_SIDES_SHAPE) -> dict:
+    """[3l] (a): every kh x kw of 1..17 (but the strip bodies' 3x3 and 5x5)
+    on each dense body, so that each of its instantiations runs: uint8
+    with int8 weights (the mma body, compiled per height) and with one
+    weight of +-200 (IMAD, per width), both in the dense form
+    (``acc_dtype``), float32 (per height); random data on the card,
+    against the plain version, tolerance 0. The largest |kernel - plain|
+    per kernel name."""
+    planars = {
+        "uint8": torch.from_numpy(rng.integers(0, 256, shape,
+                                               np.uint8)).cuda(),
+        "float32": torch.from_numpy(rng.random(shape,
+                                               dtype=np.float32)).cuda()}
+    errs = {}
+    sides = range(1, window.MAX_CONV_SIDE + 1)
+    for kh in sides:
+        for kw in sides:
+            if kh == kw and kh in window.STRIP_CONV_SIZES:
+                continue
+            mma = rng.integers(-128, 128, (kh, kw)).astype(np.int32)
+            wide = rng.integers(-40, 90, (kh, kw)).astype(np.int32)
+            wide[rng.integers(kh), rng.integers(kw)] = rng.choice([-200, 200])
+            fm = rng.integers(-1000, 1001, (kh, kw)).astype(np.int32)
+            shift = int(rng.integers(4, 12))
+            for want, dtype, launch, fn, plain in (
+                    ("conv_tile_dense_mma_u8", "uint8",
+                     window.convolution_launch(mma, shift, "int32"),
+                     lambda p: window.convolution(p, mma, shift, "int32"),
+                     lambda p: window.conv_dense_plain(p, mma, shift)),
+                    ("conv_tile_dense_u8", "uint8",
+                     window.convolution_launch(wide, shift, "int32"),
+                     lambda p: window.convolution(p, wide, shift, "int32"),
+                     lambda p: window.conv_dense_plain(p, wide, shift)),
+                    ("conv_tile_dense_f32", "float32",
+                     f32.convolution_launch(fm, 10),
+                     lambda p: f32.convolution(p, fm, 10),
+                     lambda p: f32.conv_dense_plain(p, fm, 10))):
+                check(launch[0] == want, f"{kh}x{kw} {dtype} takes "
+                      f"{launch[0]}, not {want}")
+                got, want_out = fn(planars[dtype]), plain(planars[dtype])
+                torch.cuda.synchronize()
+                err = max_delta(got, want_out)
+                errs[want] = max(errs.get(want, 0.0), err)
+                check(torch.equal(got, want_out), f"{want} {kh}x{kw} on "
+                      f"{tuple(shape)}: kernel differs from its plain "
+                      f"version (max |delta| {err})")
+    return errs
+
+
 def compare_conv_tiles(rng) -> dict:
     """[3l] (a): every case of conv_tile_cases against its plain version
     on the whole buffer, tolerance 0, at the edge inputs of its data
@@ -1086,8 +1165,9 @@ def conv_timed_ops(rng, layout) -> list:
     rank 1), the separable ones a binomial row over 2^(N-1)."""
     ops = []
     for label, dtype, kind, shape in CONV_TIMED:
-        if kind == "dense":
-            mask, shift = smooth_mask(rng, *shape)
+        if kind in ("dense", "wide"):
+            mask, shift = smooth_mask(rng, *shape,
+                                      anchor=200 if kind == "wide" else 16)
             if dtype == "uint8":
                 op = window.make_convolution(layout, *shape, shift, mask)
                 plain = (lambda p, m=mask, s=shift:
@@ -1113,7 +1193,7 @@ def conv_timed_ops(rng, layout) -> list:
 def conv_oracle(dtype: str, kind: str, img, mask, shift):
     """The oracle's HWC crop of one CONV_TIMED op on ``img``."""
     if dtype == "uint8":
-        if kind == "dense":
+        if kind in ("dense", "wide"):
             return oracle.convolution(img, mask, shift)
         return oracle.convolution(oracle.convolution(img, mask, shift),
                                   mask.T.copy(), shift)
@@ -1176,8 +1256,9 @@ def conv_work(dtype: str, kind: str, shape):
     """WORK or WORK_F32 of one CONV_TIMED op a position of the plane, all
     three planes: multiply-adds and rounding steps (uint8), or float32
     multiplies and adds."""
-    taps = shape[0] * shape[1] if kind == "dense" else 2 * shape
-    rounds = 1 if kind == "dense" else 2
+    dense = kind in ("dense", "wide")
+    taps = shape[0] * shape[1] if dense else 2 * shape
+    rounds = 1 if dense else 2
     if dtype == "uint8":
         return (3 * taps, 9 * rounds)
     return 3 * (2 * taps - rounds)
@@ -2304,8 +2385,8 @@ def drive_streaming(models, img, label, smi) -> dict:
 def tall_cases(dtype: str, shape, rng) -> list:
     """(label, kernel, op, plain version) for every launcher of data model
     ``dtype`` on a raw planar of ``shape``: the 13 ops, the chains C1-C4,
-    the Taps kernel on the 5x5 diamond, and csrc/conv.cu's dense 7x7 and
-    separable N 7."""
+    the Taps kernel on the 5x5 diamond, and csrc/conv.cu's dense 7x7 (in
+    uint8 on both dense bodies) and separable N 7."""
     f32m = dtype == "float32"
     ops, plain, names = ((OPS_F32, PLAIN_F32, KERNELS_F32) if f32m
                          else (OPS, PLAIN, KERNELS))
@@ -2321,11 +2402,15 @@ def tall_cases(dtype: str, shape, rng) -> list:
                   lambda p: window._launch_window(name, entry, p, *extra),
                   lambda p: window.morphology_plain(p, taps, torch.minimum)))
     mod = f32 if f32m else window
-    dense, shift = smooth_mask(rng, 7, 7)
-    cases.append(("dense 7x7", mod.convolution_launch(dense, shift)[0],
-                  lambda p: mod.convolution(p, dense, shift),
-                  lambda p: (mod.conv_dense_plain if f32m
-                             else mod.convolution_plain)(p, dense, shift)))
+    # uint8: weights that fit int8 (the mma body) and one of 200 (IMAD).
+    for label, anchor in (("dense 7x7", 16),) + (
+            () if f32m else (("dense 7x7, a weight outside int8", 200),)):
+        dense, shift = smooth_mask(rng, 7, 7, anchor=anchor)
+        cases.append((label, mod.convolution_launch(dense, shift)[0],
+                      lambda p, m=dense, s=shift: mod.convolution(p, m, s),
+                      lambda p, m=dense, s=shift: (
+                          mod.conv_dense_plain if f32m
+                          else mod.convolution_plain)(p, m, s)))
     row = rng.integers(-6, 9, (1, 7)).astype(np.int32)
     col = rng.integers(-6, 9, (7, 1)).astype(np.int32)
     cases.append(("separable 7",
@@ -2378,7 +2463,7 @@ def drive_tall(models, smi) -> dict:
         errs[model.dtype] = check_tall(model.dtype, TALL_SHAPE)
         print(f"  (a) {model.dtype} raw planar {TALL_SHAPE}: "
               f"{len(errs[model.dtype])} kernels (13 ops, C1-C4, a Taps "
-              f"element, two conv.cu shapes) equal to their plain versions, "
+              f"element, conv.cu's shapes) equal to their plain versions, "
               f"tolerance 0")
         torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -2761,6 +2846,11 @@ def main() -> int:
     t0 = time.perf_counter()
     conv_rng = np.random.default_rng(3)
     conv_errs = compare_conv_tiles(conv_rng)
+    for name, err in compare_dense_sides(conv_rng).items():
+        conv_errs[name] = max(conv_errs.get(name, 0.0), err)
+    print(f"  every kh x kw of 1..{window.MAX_CONV_SIDE} on each dense body "
+          f"(uint8 int8 weights, uint8 a weight of +-200, float32) on "
+          f"{DENSE_SIDES_SHAPE}: equal to the plain version")
     conv_counts, conv_ops, drive_errs = drive_conv_tiles(img, sizes[1][1])
     for name, err in drive_errs.items():
         conv_errs[name] = max(conv_errs.get(name, 0.0), err)

@@ -69,6 +69,8 @@ SIGNATURES = {
     "dip_chain_u8": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     "dip_chain_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _F, _F, _P),
     "dip_conv_tile_dense_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P),
+    "dip_conv_tile_dense_mma_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
+                                   _P),
     "dip_conv_tile_two_pass_u8": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                                   _I, _I, _P),
     "dip_conv_tile_dense_f32": (_P, _P, _I, _I, _I, _I, _I, _P, _P),

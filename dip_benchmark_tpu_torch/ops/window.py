@@ -22,8 +22,10 @@ rounding), unless the caller names an ``acc_dtype``; every other mask a
 dense form. The 3x3 and 5x5 masks whose int32 sums cannot wrap run the
 strip bodies ``ConvRank1`` and ``ConvDense``; every other shape, and a
 mask whose sums can wrap, the tile kernels of ``csrc/conv.cu``
-(``conv_tile_two_pass_u8`` unrounded between the passes,
-``conv_tile_dense_u8``). ``convolution_separated`` runs K9 (a 1xN pass
+(``conv_tile_two_pass_u8`` unrounded between the passes; the dense form
+on the int8 tensor cores, ``conv_tile_dense_mma_u8``, where every weight
+lies in [-128, 127] (``fits_int8``), else on ``conv_tile_dense_u8``).
+``convolution_separated`` runs K9 (a 1xN pass
 rounded to u8, then an Nx1 pass) on ``ConvSep<N>`` for N 3 and 5 and on
 ``conv_tile_two_pass_u8`` rounded between the passes for every other N
 from 1 to 17. Every form computes the JAX function bit for bit, the int32
@@ -65,6 +67,7 @@ from . import kernels
 STRIP_CONV_SIZES = (3, 5)   # square masks (and N) window.cu compiles in
 MAX_CONV_SIDE = 17          # conv.cu kMaxSide: 2 * the largest pad + 1
 MAX_TAP_RADIUS = 8          # taps.cuh kTapsMaxRadius
+MMA_WINDOWS = 44            # conv.cu kWindows: 4-byte windows a mask row
 # Structuring element -> (kernel name, C entry point) in window.cu.
 EROSION_KERNELS = (
     (spec.CROSS_MASK_3X3, "window_u8<MinPlus>", "dip_erosion_plus_u8"),
@@ -314,6 +317,31 @@ def factor_rank1_int(int_mask: np.ndarray):
     return u.astype(np.int32), v.astype(np.int32)
 
 
+def fits_int8(int_mask: np.ndarray) -> bool:
+    """Whether every weight lies in [-128, 127]: the int8 tensor-core body
+    then computes the dense form exactly (a sum is at most 289 * 255 * 128
+    in magnitude, so it cannot wrap)."""
+    m = np.asarray(int_mask, np.int64)
+    return bool(((m >= -128) & (m <= 127)).all())
+
+
+def mma_windows(int_mask: np.ndarray) -> np.ndarray:
+    """The band of each mask row as ``conv_tile_dense_mma_u8`` takes it:
+    ``(kh, MMA_WINDOWS)`` uint32, word ``e`` of row ``ky`` the bytes
+    ``w[ky, e - 23 + kw // 2 + b]`` for b = 0..3 (0 off the row), lowest
+    first. The kernel's A operand for mask row ky is the 16 x 32 int8
+    matrix ``A[m, k] = w[ky, k - m - 8 + kw // 2]``; its register j in
+    lane (g, t) is word ``4 t + 16 (j // 2) - g - 8 (j % 2) + 15``."""
+    m = np.asarray(int_mask, np.int64)
+    kh, kw = m.shape
+    padded = np.zeros((kh, MMA_WINDOWS + 3), np.int64)
+    lead = 23 - kw // 2   # padded column of w[ky, 0]
+    padded[:, lead:lead + kw] = m
+    idx = np.arange(MMA_WINDOWS)[:, None] + np.arange(4)[None, :]
+    window = padded[:, idx] & 0xFF                    # (kh, windows, 4)
+    return (window << (8 * np.arange(4))).sum(-1).astype(np.uint32)
+
+
 def _mask_key(int_mask: np.ndarray) -> tuple:
     m = np.asarray(int_mask, np.int64)
     return m.shape, m.tobytes()
@@ -370,9 +398,14 @@ def _convolution_launch(shape: tuple, data: bytes, shift: int,
         return ("conv_tile_two_pass_u8", "dip_conv_tile_two_pass_u8",
                 (kh, kw, _int_array(uv[0]), _int_array(uv[1]), shift, 0, 0,
                  1))
+    clamp = int(clamps(int_mask, shift))
+    if fits_int8(int_mask):
+        win = mma_windows(int_mask).ravel()
+        return ("conv_tile_dense_mma_u8", "dip_conv_tile_dense_mma_u8",
+                (kh, kw, (ctypes.c_uint * win.size)(*win.tolist()), shift,
+                 clamp))
     return ("conv_tile_dense_u8", "dip_conv_tile_dense_u8",
-            (kh, kw, _int_array(int_mask), shift,
-             int(clamps(int_mask, shift))))
+            (kh, kw, _int_array(int_mask), shift, clamp))
 
 
 def convolution_plain(planar: torch.Tensor, int_mask: np.ndarray,

@@ -193,8 +193,11 @@ def test_convolution_routes_like_jax(i, monkeypatch):
         if not rank1:
             assert name == f"window_u8<ConvDense<{kh},{kw}>>"
     else:
-        assert name == ("conv_tile_two_pass_u8" if rank1
-                        else "conv_tile_dense_u8")
+        # The dense form runs on the int8 tensor cores where every weight
+        # fits int8, else on the IMAD body.
+        dense = ("conv_tile_dense_mma_u8" if window.fits_int8(mask)
+                 else "conv_tile_dense_u8")
+        assert name == ("conv_tile_two_pass_u8" if rank1 else dense)
         assert entry == "dip_" + name
     if name == "conv_tile_two_pass_u8":
         assert extra[5] == 0   # unrounded between the passes

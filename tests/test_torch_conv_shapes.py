@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from dip_benchmark_tpu_torch import spec
-from dip_benchmark_tpu_torch.ops import f32, window
+from dip_benchmark_tpu_torch.ops import f32, kernels, window
 from dip_benchmark_tpu_torch.utils.image import (from_jax_planar,
                                                  make_layout,
                                                  to_planar_padded,
@@ -50,7 +50,8 @@ DENSE_SHAPES = [(1, 1), (1, 3), (3, 1), (3, 5), (5, 3), (2, 4), (7, 5),
                 (7, 7), (9, 9), (1, 17), (17, 1), (17, 17)]
 SEP_NS = list(range(1, 18))   # every N the JAX builders take, even ones too
 RANK1_SHAPES = [(1, 3), (3, 5), (2, 4), (7, 5), (9, 9), (1, 17), (17, 17)]
-TILE = ("conv_tile_dense_u8", "conv_tile_two_pass_u8")
+TILE = ("conv_tile_dense_u8", "conv_tile_dense_mma_u8",
+        "conv_tile_two_pass_u8")
 
 
 @pytest.fixture(autouse=True)
@@ -188,7 +189,9 @@ def test_acc_dtype_takes_the_dense_form_and_matches_jax(acc, kind):
         lambda lay: window.make_convolution(lay, 7, 5, 6, mask,
                                             acc_dtype=acc), image(9))
     np.testing.assert_array_equal(got, want)
-    assert window.convolution_launch(mask, 6, acc)[0] == "conv_tile_dense_u8"
+    # The dense form; its weights fit int8, so the tensor-core body.
+    assert window.convolution_launch(mask, 6, acc)[0] == (
+        "conv_tile_dense_mma_u8")
 
 
 def test_acc_dtype_keeps_3x3_on_the_dense_strip_body():
@@ -260,6 +263,129 @@ def test_rank1_plain_equals_dense_at_any_anchor(kh, kw):
     planar = torch.from_numpy(rng.integers(0, 256, (2, 21, 48), np.uint8))
     assert torch.equal(window.conv_rank1_plain(planar, u, v, 4),
                        window.conv_dense_plain(planar, mask, 4))
+
+
+# -- the dense form's two bodies -----------------------------------------------
+
+def wide_mask(rng, kh: int, kw: int, big: int) -> np.ndarray:
+    """Weights of either sign with one of ``big`` (outside int8) at the
+    anchor: the IMAD body, its int32 sums far from wrapping."""
+    m = random_mask(rng, kh, kw)
+    m[kh // 2, kw // 2] = big
+    return m
+
+
+# (label, mask, shift, acc_dtype, the dense form's kernel)
+_R = np.random.default_rng(11)
+BODY_CASES = [
+    ("int8 7x5", random_mask(_R, 7, 5), 6, None, "conv_tile_dense_mma_u8"),
+    ("int8 ends 1x17", np.array([[-128, 127] * 8 + [5]]), 7, None,
+     "conv_tile_dense_mma_u8"),
+    ("int8 2x4", random_mask(_R, 2, 4), 4, None, "conv_tile_dense_mma_u8"),
+    ("+200 7x7", wide_mask(_R, 7, 7, 200), 8, None, "conv_tile_dense_u8"),
+    ("-200 17x17", wide_mask(_R, 17, 17, -200), 9, None,
+     "conv_tile_dense_u8"),
+    ("128 1x17", wide_mask(_R, 1, 17, 128), 7, None, "conv_tile_dense_u8"),
+    ("-129 9x1", wide_mask(_R, 9, 1, -129), 7, None, "conv_tile_dense_u8"),
+    ("int8 7x5, acc int32", random_mask(_R, 7, 5), 6, "int32",
+     "conv_tile_dense_mma_u8"),
+    ("int8 rank 1 7x5, acc int16", rank1_mask(_R, 7, 5), 6, "int16",
+     "conv_tile_dense_mma_u8"),
+    ("+200 7x5, acc int32", wide_mask(_R, 7, 5, 200), 8, "int32",
+     "conv_tile_dense_u8"),
+    ("+200 3x3 keeps the strip body", wide_mask(_R, 3, 3, 200), 8, None,
+     "window_u8<ConvDense<3,3>>"),
+] + [(f"overflow {label}", mask.astype(np.int32), shift, None,
+      "conv_tile_dense_u8") for label, mask, shift in OVERFLOW]
+
+
+@pytest.mark.parametrize("case", range(len(BODY_CASES)))
+def test_dense_form_takes_the_body_its_weights_fit(case):
+    label, mask, shift, acc, want = BODY_CASES[case]
+    assert window.convolution_launch(mask, shift, acc)[0] == want, label
+    assert window.fits_int8(mask) == (want == "conv_tile_dense_mma_u8") or (
+        want.startswith("window_u8")), label
+
+
+@pytest.mark.parametrize("kh,kw", [(7, 7), (1, 17), (17, 17), (2, 9)])
+def test_dense_u8_outside_int8_matches_jax(kh, kw):
+    rng = np.random.default_rng(500 + 20 * kh + kw)
+    mask, shift = wide_mask(rng, kh, kw, -200 if kh % 2 else 300), 9
+    assert window.convolution_launch(mask, shift)[0] == "conv_tile_dense_u8"
+    want, got = run_u8(
+        lambda jl: jax_window.make_convolution(jl, kh, kw, shift, mask),
+        lambda lay: window.make_convolution(lay, kh, kw, shift, mask),
+        image(kh + 3 * kw))
+    np.testing.assert_array_equal(got, want)
+
+
+def mma_band(win_row: np.ndarray) -> np.ndarray:
+    """The 16 x 32 int8 A operand the lanes of conv_tile_dense_mma_u8
+    assemble from one mask row's windows: lane (g, t) holds, in register
+    j, row g + 8 (j % 2), columns 4 t + 16 (j // 2) .. + 3, the mma.sync
+    m16n8k32 fragment layout of A."""
+    a = np.full((16, 32), 999, np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for j in range(4):
+            word = int(win_row[4 * t + 16 * (j >> 1) - g - 8 * (j & 1) + 15])
+            m, k0 = g + 8 * (j & 1), 4 * t + 16 * (j >> 1)
+            for b in range(4):
+                byte = (word >> (8 * b)) & 0xFF
+                a[m, k0 + b] = byte - 256 if byte > 127 else byte
+    return a
+
+
+def emulate_mma(planar: np.ndarray, mask: np.ndarray,
+                shift: int) -> np.ndarray:
+    """conv_tile_dense_mma_u8's output from the host's windows: for each
+    group of 16 output columns and mask row ky, the band A times B, B the
+    32 frame bytes from 8 columns left of the group of each output row's
+    row + ky - kh // 2 (0 off the buffer); then the quantizer and the
+    ring."""
+    kh, kw = mask.shape
+    hy, hx = kh // 2, kw // 2
+    c, hp, pitch = planar.shape
+    frame = np.zeros((c, hp + kh, pitch + 32), np.int64)
+    frame[:, hy:hy + hp, 8:8 + pitch] = planar
+    acc = np.zeros((c, hp, pitch), np.int64)
+    win = window.mma_windows(mask)
+    for ky in range(kh):
+        band = mma_band(win[ky])
+        rows = frame[:, ky:ky + hp]   # output row y reads y - hy + ky
+        for xg in range(0, pitch, 16):
+            acc[:, :, xg:xg + 16] += rows[:, :, xg:xg + 32] @ band.T
+    out = window._round(torch.from_numpy(acc), shift,
+                        window.clamps(mask, shift))
+    return window.zero_ring(out.to(torch.uint8), hy, hx).numpy()
+
+
+@pytest.mark.parametrize("kh,kw", [(1, 1), (1, 17), (17, 1), (2, 4),
+                                   (4, 2), (7, 7), (6, 16), (17, 17)])
+def test_mma_band_is_the_toeplitz_of_each_mask_row(kh, kw):
+    rng = np.random.default_rng(kh * 31 + kw)
+    mask = rng.integers(-128, 128, (kh, kw))
+    win = window.mma_windows(mask)
+    assert win.shape == (kh, window.MMA_WINDOWS) and win.dtype == np.uint32
+    m, k = np.meshgrid(np.arange(16), np.arange(32), indexing="ij")
+    kx = k - m - 8 + kw // 2
+    for ky in range(kh):
+        want = np.where((kx >= 0) & (kx < kw),
+                        mask[ky, np.clip(kx, 0, kw - 1)], 0)
+        np.testing.assert_array_equal(mma_band(win[ky]), want)
+
+
+@pytest.mark.parametrize("kh,kw,shift", [(1, 17, 7), (17, 1, 6), (2, 9, 5),
+                                         (7, 7, 8), (8, 3, 4), (17, 17, 12),
+                                         (9, 6, 31)])
+def test_mma_emulation_equals_conv_dense_plain(kh, kw, shift):
+    rng = np.random.default_rng(kh * 17 + kw)
+    mask = rng.integers(-128, 128, (kh, kw))
+    mask[0, 0], mask[-1, -1] = -128, 127
+    planar = rng.integers(0, 256, (2, 37, 48), np.uint8)
+    want = window.conv_dense_plain(torch.from_numpy(planar), mask, shift)
+    np.testing.assert_array_equal(emulate_mma(planar, mask, shift),
+                                  want.numpy())
 
 
 # -- float32 ------------------------------------------------------------------
@@ -371,8 +497,11 @@ def test_kernel_side_equals_the_wrappers():
     src = os.path.join(os.path.dirname(window.__file__), "kernels", "csrc",
                        "conv.cu")
     with open(src) as f:
-        side = int(re.search(r"kMaxSide = (\d+);", f.read()).group(1))
+        text = f.read()
+    side = int(re.search(r"kMaxSide = (\d+);", text).group(1))
     assert side == window.MAX_CONV_SIDE == 2 * PAD + 1
+    windows = int(re.search(r"kWindows = (\d+);", text).group(1))
+    assert windows == window.MMA_WINDOWS
 
 
 def jax_body(mask: np.ndarray, shift: int, monkeypatch) -> str:
@@ -401,6 +530,17 @@ def card_cases(rng):
                       lambda p, m=fmask: f32.convolution(p, m, 10),
                       lambda p, m=fmask: f32.conv_dense_plain(p, m, 10),
                       torch.float32))
+    for kh, kw, big in ((7, 7, 200), (1, 17, -200), (17, 17, 300),
+                        (6, 3, 128)):
+        mask = wide_mask(rng, kh, kw, big)
+        cases.append((f"u8 dense {kh}x{kw} with {big}",
+                      lambda p, m=mask: window.convolution(p, m, 9),
+                      lambda p, m=mask: window.conv_dense_plain(p, m, 9),
+                      torch.uint8))
+    ends = np.array([[-128, 127, 127], [127, -128, 127]] * 4 + [[5, 9, 1]])
+    cases.append(("u8 dense int8 ends 9x3",
+                  lambda p: window.convolution(p, ends, 8),
+                  lambda p: window.conv_dense_plain(p, ends, 8), torch.uint8))
     rank1 = rank1_mask(rng, 9, 7)
     cases.append(("u8 rank 1 9x7",
                   lambda p: window.convolution(p, rank1, 5),
@@ -430,15 +570,37 @@ def card_cases(rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 25, 48), (1, 70, 4112),
-                                   (3, 2357, 3520)])
+                                   (3, 2357, 3520), (3, 67, 64),
+                                   (2, 129, 16), (1, 33, 32), (1, 1, 16),
+                                   (2, 200, 4112)])
 def test_conv_tile_kernels_match_plain_on_card(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     rng = np.random.default_rng(shape[1])
     u8 = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).cuda()
     f = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
+    names = set()
     for label, op, plain, dtype in card_cases(rng):
         planar = u8 if dtype == torch.uint8 else f
+        kernels.reset_launches()
         got = op(planar)
         torch.cuda.synchronize()
+        names |= set(kernels.LAUNCHES)
         assert torch.equal(got, plain(planar)), f"{label} on {shape}"
+    assert {"conv_tile_dense_u8", "conv_tile_dense_mma_u8",
+            "conv_tile_dense_f32"} <= names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 129, 48), (1, 67, 16)])
+def test_every_dense_side_matches_plain_on_card(shape):
+    # chip_smoke.py [3l]'s sweep: every kh x kw of 1..17 on each dense
+    # body (every instantiation of conv.cu's dense kernels), tolerance 0.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import chip_smoke
+    errs = chip_smoke.compare_dense_sides(np.random.default_rng(shape[1]),
+                                          shape)
+    assert set(errs) == {"conv_tile_dense_u8", "conv_tile_dense_mma_u8",
+                         "conv_tile_dense_f32"}
+    assert not any(errs.values())
