@@ -70,14 +70,19 @@ csrc`` with nvcc, then, with no fallback anywhere:
    weights of either sign (uint8: the int8 tensor-core body), and in
    uint8 the same shapes with one weight of +-200 (the IMAD body), masks of
    int8's end weights, factoring masks (the two-pass form unrounded
-   between), separable N 1 to 17 (odd) in both models, an ``acc_dtype``,
+   between), separable N 1 to 17 in both models, an ``acc_dtype``,
    masks whose int32 sums wrap (the IMAD body), at ``EDGE_IMAGES`` on pad-8
    layouts (raw buffers of that shape where an image is smaller than 9)
    and ``EDGE_BUFFERS``, whole buffer, tolerance 0; every kh x kw of
    1..17 on each dense body (``compare_dense_sides``, so that every
-   instantiation runs) on ``DENSE_SIDES_SHAPE``; then ``CONV_TIMED``
+   instantiation runs) on ``DENSE_SIDES_SHAPE``; every N of 1..17 on each
+   two-pass kernel (``compare_two_pass_sides``: uint8 rounded between,
+   unrounded N x N and N x kw, row weights of 1, 2 and more digits, so
+   that each of its 102 instantiations runs; float32) on
+   ``TWO_PASS_SIDES_SHAPES``; then ``CONV_TIMED``
    (7x7, 17x17, 1x17 dense, separable N 9 and 17, both models; the three
-   dense uint8 shapes again with a weight of 200) through the builders on
+   dense uint8 shapes again with a weight of 200, and as box filters that
+   factor: the two-pass form unrounded) through the builders on
    the pad-8 planar ``(3, 2352, 3520)`` of the benchmark image, driven
    once with the counts zeroed (each of the five kernels launched), every
    output equal to its plain version, the same builders' crops on 37x53
@@ -183,7 +188,7 @@ csrc`` with nvcc, then, with no fallback anywhere:
    held to its plain version on three bands of 64 rows (the first, the one
    across element 2^31 of the first plane, the last) computed from the
    band and 2 rows of halo, tolerance 0, and freed before the next op;
-7. prints ``{"kernels": [...]}`` (59 entries, each with its ``dtype``),
+7. prints ``{"kernels": [...]}`` (62 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -421,17 +426,22 @@ CONV_PAD = 8
 # [3l]'s sweep of every mask shape on each dense body: a partial 64-row
 # tile and a 48-column pitch, two planes.
 DENSE_SIDES_SHAPE = (2, 129, 48)
+# [3l]'s sweep of every mask height on each two-pass kernel: that shape and
+# one of several column blocks and 64-row tiles, three planes.
+TWO_PASS_SIDES_SHAPES = (DENSE_SIDES_SHAPE, (3, 150, 1200))
 CONV_SIDES = (1, 2, 3, 5, 7, 9, 17)
-CONV_SEP_NS = tuple(range(1, 18, 2))
+CONV_SEP_NS = tuple(range(1, 18))
 # (label, data model, form, mask side(s) or N) timed at full size; "wide":
-# the dense uint8 form with one weight outside int8 (the IMAD body).
+# the dense uint8 form with one weight outside int8 (the IMAD body);
+# "rank1": a box filter that factors (rank1_box), the two-pass form
+# unrounded between.
 CONV_TIMED = [(f"{kind} {shape}", dtype, kind, shape)
               for dtype in ("uint8", "float32")
               for kind, shape in (("dense", (7, 7)), ("dense", (17, 17)),
                                   ("dense", (1, 17)), ("separable", 9),
                                   ("separable", 17))] + [
-    (f"wide {shape}", "uint8", "wide", shape)
-    for shape in ((7, 7), (17, 17), (1, 17))]
+    (f"{kind} {shape}", "uint8", kind, shape)
+    for kind in ("wide", "rank1") for shape in ((7, 7), (17, 17), (1, 17))]
 # kernel -> (file:line and name of the TPU kernel it replaces).
 CONV_TPU = {
     "conv_tile_dense_u8": ("ops/pallas/window.py:491",
@@ -1007,6 +1017,16 @@ def smooth_weights(rng, kh: int, kw: int, anchor: int = 16) -> tuple:
     return m, int(round(np.log2(m.sum())))
 
 
+def rank1_box(kh: int, kw: int) -> tuple:
+    """(u, v) of a kh x kw box filter, every other column of it where the
+    whole box would pass the packed-16 bound (255 sum < 2^16) that sends a
+    factoring mask to the two-pass form unrounded between."""
+    u, v = np.ones(kh, np.int32), np.ones(kw, np.int32)
+    if 255 * kh * kw >= 1 << 16:
+        v[1::2] = 0
+    return u, v
+
+
 def smooth_mask(rng, kh: int, kw: int, anchor: int = 16) -> tuple:
     """``smooth_weights`` whose sum is past the packed-16 bound, so that
     the mask takes the dense form, as a row mask 1xN must to."""
@@ -1134,6 +1154,100 @@ def compare_dense_sides(rng, shape=DENSE_SIDES_SHAPE) -> dict:
     return errs
 
 
+def two_pass_side_cases(rng) -> list:
+    """(label, kernel name, launch, plain version, body) for every
+    instantiation of csrc/conv.cu's two-pass kernels: for each N of 1..17
+    (3 and 5 too, which the builders send to the strip bodies, so the C
+    entry points are called directly) uint8 rounded between the passes
+    (clamped, and whole where the masks cannot leave [0, 255]), the
+    unrounded N x N rank-1 form and an unrounded N x kw one with kw != N
+    (the row pass of any width), each with row weights of 1, 2 and more
+    base-256 digits (the last with the column pass in uint32), and float32.
+    ``body``: kh and ``window.two_pass_body``'s (None for float32)."""
+    cases = []
+
+    def u8(label, u, v, shift, rnd, plain):
+        clamp_rows = bool(rnd and window.clamps(v, shift))
+        name, entry, extra = window.two_pass_launch(
+            u, v, shift, rnd, clamp_rows,
+            not rnd or window.clamps(u, shift))
+        cases.append((label, name, lambda p: window._launch_window(
+            name, entry, p, *extra), plain,
+            (len(u), *window.two_pass_body(u, v, shift, rnd, clamp_rows))))
+
+    def big(rng, n, at):
+        # Small weights, one of them `at` (2 digits: 200; 3: 40000).
+        w = rng.integers(0, 4, n).astype(np.int32)
+        w[rng.integers(n)] = at
+        return w
+
+    for n in range(1, window.MAX_CONV_SIDE + 1):
+        row = rng.integers(-6, 9, (1, n)).astype(np.int32)
+        col = rng.integers(-6, 9, (n, 1)).astype(np.int32)
+        u8(f"u8 separable {n}", col, row, 3, True,
+           lambda p, r=row, c=col: window.conv_sep_plain(p, r, c, 3))
+        pos = rng.integers(0, 5, (1, n)).astype(np.int32)
+        shift = int(np.ceil(np.log2(max(int(pos.sum()), 1))))
+        u8(f"u8 separable {n}, no clamp", pos.T.copy(), pos, shift, True,
+           lambda p, r=pos, s=shift: window.conv_sep_plain(p, r, r.T.copy(),
+                                                           s))
+        for at, cat in ((200, 3), (40000, 70000)):
+            row, col = big(rng, n, at)[None], big(rng, n, cat)[:, None]
+            u8(f"u8 separable {n}, a row weight of {at}", col, row, 8, True,
+               lambda p, r=row, c=col: window.conv_sep_plain(p, r, c, 8))
+        kw = (7 * n) % window.MAX_CONV_SIDE + 1
+        kw = kw if kw != n else n % window.MAX_CONV_SIDE + 1
+        for w in (n, kw):
+            for at in (None, 200, 40000):
+                u = rng.integers(0, 4, n)
+                v = rng.integers(0, 4, w) if at is None else big(rng, w, at)
+                shift = int(rng.integers(1, 7))
+                u8(f"u8 rank 1 {n}x{w}" + (f", a weight of {at}" if at
+                                           else ""), u, v, shift, False,
+                   lambda p, u=u, v=v, s=shift: window.conv_rank1_plain(
+                       p, u, v, s))
+        frow = rng.integers(-1000, 1001, (1, n)).astype(np.int32)
+        fcol = rng.integers(-1000, 1001, (n, 1)).astype(np.int32)
+        extra = (n, f32._float_array(spec.mask_float(frow, 10)),
+                 f32._float_array(spec.mask_float(fcol, 10)))
+        cases.append((f"f32 separable {n}", "conv_tile_sep_f32",
+                      lambda p, e=extra: window._launch_window(
+                          "conv_tile_sep_f32", "dip_conv_tile_sep_f32", p,
+                          *e),
+                      lambda p, r=frow, c=fcol: f32.conv_sep_plain(p, r, c,
+                                                                   10),
+                      None))
+    return cases
+
+
+def compare_two_pass_sides(rng, shape=DENSE_SIDES_SHAPE) -> dict:
+    """[3l] (a): ``two_pass_side_cases`` on random data of ``shape`` on the
+    card (uint8, and float32 in [0, 1)), each against its plain version,
+    tolerance 0. The largest |kernel - plain| per kernel name."""
+    planars = {
+        "uint8": torch.from_numpy(rng.integers(0, 256, shape,
+                                               np.uint8)).cuda(),
+        "float32": torch.from_numpy(rng.random(shape,
+                                               dtype=np.float32)).cuda()}
+    errs = {}
+    cases = two_pass_side_cases(rng)
+    bodies = {(n, square, digits, fl) for n in range(
+        1, window.MAX_CONV_SIDE + 1) for square in (True, False)
+        for digits, fl in ((1, True), (2, True), (4, False))}
+    ran = {body for *_, body in cases if body}
+    check(ran == bodies, f"[3l] two-pass cases miss the uint8 "
+          f"instantiations {sorted(bodies - ran)}")
+    for label, name, fn, plain, _ in cases:
+        planar = planars["float32" if label.startswith("f32") else "uint8"]
+        got, want = fn(planar), plain(planar)
+        torch.cuda.synchronize()
+        err = max_delta(got, want)
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(torch.equal(got, want), f"{name} ({label}) on {tuple(shape)}:"
+              f" kernel differs from its plain version (max |delta| {err})")
+    return errs
+
+
 def compare_conv_tiles(rng) -> dict:
     """[3l] (a): every case of conv_tile_cases against its plain version
     on the whole buffer, tolerance 0, at the edge inputs of its data
@@ -1162,10 +1276,17 @@ def compare_conv_tiles(rng) -> dict:
 def conv_timed_ops(rng, layout) -> list:
     """(label, data model, op built on ``layout``, plain version, mask,
     shift) for each of CONV_TIMED: the dense masks from smooth_mask (not
-    rank 1), the separable ones a binomial row over 2^(N-1)."""
+    rank 1), the rank-1 ones from rank1_box over about their sum, the
+    separable ones a binomial row over 2^(N-1)."""
     ops = []
     for label, dtype, kind, shape in CONV_TIMED:
-        if kind in ("dense", "wide"):
+        if kind == "rank1":
+            mask = np.outer(*rank1_box(*shape)).astype(np.int32)
+            shift = int(round(math.log2(int(mask.sum()))))
+            op = window.make_convolution(layout, *shape, shift, mask)
+            plain = (lambda p, m=mask, s=shift:
+                     window.convolution_plain(p, m, s))
+        elif kind in ("dense", "wide"):
             mask, shift = smooth_mask(rng, *shape,
                                       anchor=200 if kind == "wide" else 16)
             if dtype == "uint8":
@@ -1193,7 +1314,7 @@ def conv_timed_ops(rng, layout) -> list:
 def conv_oracle(dtype: str, kind: str, img, mask, shift):
     """The oracle's HWC crop of one CONV_TIMED op on ``img``."""
     if dtype == "uint8":
-        if kind in ("dense", "wide"):
+        if kind in ("dense", "wide", "rank1"):
             return oracle.convolution(img, mask, shift)
         return oracle.convolution(oracle.convolution(img, mask, shift),
                                   mask.T.copy(), shift)
@@ -1255,10 +1376,12 @@ def drive_conv_tiles(img, small) -> tuple[dict, list, dict]:
 def conv_work(dtype: str, kind: str, shape):
     """WORK or WORK_F32 of one CONV_TIMED op a position of the plane, all
     three planes: multiply-adds and rounding steps (uint8), or float32
-    multiplies and adds."""
+    multiplies and adds. A rank-1 mask's two passes: kh + kw taps, one
+    rounding."""
     dense = kind in ("dense", "wide")
-    taps = shape[0] * shape[1] if dense else 2 * shape
-    rounds = 1 if dense else 2
+    taps = (shape[0] * shape[1] if dense else sum(shape) if kind == "rank1"
+            else 2 * shape)
+    rounds = 2 if kind == "separable" else 1
     if dtype == "uint8":
         return (3 * taps, 9 * rounds)
     return 3 * (2 * taps - rounds)
@@ -2851,6 +2974,12 @@ def main() -> int:
     print(f"  every kh x kw of 1..{window.MAX_CONV_SIDE} on each dense body "
           f"(uint8 int8 weights, uint8 a weight of +-200, float32) on "
           f"{DENSE_SIDES_SHAPE}: equal to the plain version")
+    for shape in TWO_PASS_SIDES_SHAPES:
+        for name, err in compare_two_pass_sides(conv_rng, shape).items():
+            conv_errs[name] = max(conv_errs.get(name, 0.0), err)
+    print(f"  every N of 1..{window.MAX_CONV_SIDE} on each two-pass kernel "
+          f"(uint8 rounded between, unrounded N x N and N x kw; float32) on "
+          f"{TWO_PASS_SIDES_SHAPES}: equal to the plain version")
     conv_counts, conv_ops, drive_errs = drive_conv_tiles(img, sizes[1][1])
     for name, err in drive_errs.items():
         conv_errs[name] = max(conv_errs.get(name, 0.0), err)

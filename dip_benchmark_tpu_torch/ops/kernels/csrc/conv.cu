@@ -39,17 +39,41 @@
 // The plain versions in ops/window.py and ops/f32.py compute the same, and
 // on the card the two are equal bit for bit.
 //
-// Design of the two-pass kernels: one block of 256 threads a tile of 32
-// output rows by 64 columns. The block loads the tile's frame, its rows and
-// columns with a halo of 8 on each side whatever the mask (48 x 80 values),
-// into shared memory as int (uint8 widened) or float, 16 bytes a store; the
-// weights go to shared memory too, each row of the mask padded to 20 and
-// placed at the tap offset d = kx - kw / 2 + 8, so that a thread's loop
-// over d in [0, 17) is unrolled and reads its registers at constant
-// indices. A thread owns 4 adjacent outputs of a row; the d outside the
-// mask are skipped by a branch that is the same in every thread. The
-// two-pass kernels run the row pass over the frame rows the column pass
-// reads into a second shared array, then the column pass.
+// Design of the two-pass kernels: a warp owns 128 output columns of a
+// tile a.rows tall (the height cut at launch so that the blocks fill the
+// card once) and walks down it, each lane 4 adjacent columns (a 32-bit
+// word of bytes, or a float4). Its frame is the plane rows the mask
+// reaches (a.rows + kh - 1, anchored at the mask), each row with the 16
+// bytes (8 floats) left and right of the warp's columns that a tap can
+// read; the warp copies them by cp.async into a ring of rows in shared
+// memory of its own, kSepAhead groups of rows ahead of the row it reads,
+// and syncs with __syncwarp only: no block barrier. For each frame row a
+// lane takes the row pass of its 4 columns once, then feeds it to the
+// column sums of the kh outputs that row reaches, held in registers:
+// part[k] is the sum of output row j - kh + 2 + k after frame row j, and
+// frame row j + 1 adds its term with weight u[kh - 2 - k] while moving it
+// to part[k - 1] (the moves are register names, no instruction), so each
+// output takes its terms in ky order, which the float32 order needs, and
+// the column pass reads no shared memory. A row's step has no branch, so
+// that the compiler interleaves the rows of a group. Each kernel is
+// compiled for every mask height kh (the column pass's ring); no branch a
+// tap.
+// - conv_tile_two_pass_u8: the row pass as dp4a (4 byte products an
+//   instruction): for each output the frame bytes of 4 taps as one word
+//   (a funnel shift of two aligned words), against the row weights split
+//   on the host into D balanced base-256 digits (w = sum of d_i 256^i,
+//   d_i in [-128, 127], exact modulo 2^32), one dp4a a digit, the digit
+//   sums shifted and added. The row pass is compiled for kw where kw ==
+//   kh (every separable N, the square rank-1 masks), else for 17 taps with
+//   the weights at the anchor (0 elsewhere). Then the rounding between
+//   (an identity where there is none: no branch), and the column pass:
+//   FFMA on floats where the host proves every column sum an integer below
+//   2^24 (exact; the FP32 pipe has twice the IMAD pipe's rate, and the
+//   IMAD pipe has the dp4a), else IMAD in uint32. Bodies: D 1 or 2 with
+//   the float column pass, or D 4 with the uint32 one (every other mask);
+//   six a mask height, 102 instantiations, chosen by the host.
+// - conv_tile_sep_f32: the row pass over kx ascending (FMUL, FADD), the
+//   column pass from the ring; 17 instantiations.
 //
 // Design of the dense kernels: a block a tile of 64 x 64 outputs; its
 // frame holds only the rows the mask reaches (64 + kh - 1), anchored so
@@ -88,16 +112,17 @@
 //   against few warps an SM, and at tall masks kh mma.sync a warp's
 //   block of 8 rows.
 //
-// Bound of the two-pass kernels: for large masks, the multiply-adds; for
-// small ones the compulsory traffic, the buffer read once and written
-// once. What they spend beyond it: the frame's halo (48 x 80 loads for 32 x
-// 64 outputs, from L2 mostly), two shared-memory loads of 16 bytes a mask
-// row for 4 outputs, the skipped d. A first version: making them fast is
-// later work (PERF.md).
+// Bound of the two-pass kernels: the bytes, the buffer read once and
+// written once; the arithmetic a lane issues is below it at small masks
+// and near it at large ones: uint8, for each output about ceil(kw / 4) D
+// dp4a (times 1 + (kh - 1) / a.rows, the halo rows the warp below takes
+// again) beside kh FFMA or IMAD; float32, (2 kw - 1) (1 + (kh - 1) /
+// a.rows) + 2 kh - 1 FMUL and FADD at 128 a clock an SM.
 #include <cuda_pipeline.h>
 
 #include <atomic>
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 #include "words.cuh"
@@ -105,18 +130,9 @@
 namespace {
 
 constexpr int kMaxSide = 17;                 // taps a side of a mask
-constexpr int kHalo = kMaxSide / 2;          // the frame's halo, 8
-constexpr int kTileRows = 32;
-constexpr int kTileCols = 64;
+constexpr int kHalo = kMaxSide / 2;          // taps past the anchor, 8
 constexpr int kConvThreads = 256;
-constexpr int kFrameRows = kTileRows + 2 * kHalo;   // 48
-constexpr int kFrameCols = kTileCols + 2 * kHalo;   // 80
-constexpr int kSeg = 4 + 2 * kHalo;  // frame values 4 outputs read: 20
-constexpr int kGroups = kTileCols / 4;              // 4 outputs a group
-constexpr int kRowStep = kConvThreads / kGroups;    // 16
 constexpr int kMaxGridZ = 65535;                    // gridDim.z
-static_assert(kTileRows % kRowStep == 0, "every thread has whole rows");
-static_assert(kSeg % 4 == 0, "a segment is whole 16-byte loads");
 
 __device__ __forceinline__ float mul(float a, float b) {
   return __fmul_rn(a, b);
@@ -124,86 +140,6 @@ __device__ __forceinline__ float mul(float a, float b) {
 
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
-}
-
-template <class T>
-struct Vec4;
-template <>
-struct Vec4<int> {
-  using type = int4;
-};
-template <>
-struct Vec4<float> {
-  using type = float4;
-};
-
-// n values (a multiple of 4) from shared memory at p, 16-byte aligned.
-template <class T, int N>
-__device__ __forceinline__ void load_vec(const T* p, T (&s)[N]) {
-#pragma unroll
-  for (int k = 0; k < N / 4; ++k) {
-    const auto v = *reinterpret_cast<const typename Vec4<T>::type*>(p + 4 * k);
-    s[4 * k] = v.x, s[4 * k + 1] = v.y, s[4 * k + 2] = v.z,
-    s[4 * k + 3] = v.w;
-  }
-}
-
-// Where the block's tile lies: output rows y0 .., columns x0 .., plane z.
-struct Tile {
-  int y0, x0;
-  size_t plane;
-};
-
-__device__ __forceinline__ Tile block_tile(int hp, int pitch, int row0) {
-  return {row0 + static_cast<int>(blockIdx.y) * kTileRows,
-          static_cast<int>(blockIdx.x) * kTileCols,
-          static_cast<size_t>(blockIdx.z) * hp * pitch};
-}
-
-// The frame: frame[r][c] is the plane at row y0 - kHalo + r, column
-// x0 - kHalo + c, 0 outside the plane. x0 - kHalo is a multiple of 4 and
-// the pitch one of 4 (uint8: 16), so each load of 4 values lies wholly
-// inside a row or wholly outside.
-__device__ __forceinline__ void load_frame(const uint8_t* __restrict__ in,
-                                           int hp, int pitch, const Tile& t,
-                                           int* frame) {
-  constexpr int kLoads = kFrameCols / 4;
-  for (int i = threadIdx.x; i < kFrameRows * kLoads; i += kConvThreads) {
-    const int r = i / kLoads, c = 4 * (i % kLoads);
-    const int y = t.y0 - kHalo + r, x = t.x0 - kHalo + c;
-    uint32_t w = 0;
-    if (y >= 0 && y < hp && x >= 0 && x < pitch)
-      w = *reinterpret_cast<const uint32_t*>(
-          in + t.plane + static_cast<size_t>(y) * pitch + x);
-    *reinterpret_cast<int4*>(frame + r * kFrameCols + c) =
-        make_int4(w & 255u, (w >> 8) & 255u, (w >> 16) & 255u, w >> 24);
-  }
-}
-
-__device__ __forceinline__ void load_frame(const float* __restrict__ in,
-                                           int hp, int pitch, const Tile& t,
-                                           float* frame) {
-  constexpr int kLoads = kFrameCols / 4;
-  for (int i = threadIdx.x; i < kFrameRows * kLoads; i += kConvThreads) {
-    const int r = i / kLoads, c = 4 * (i % kLoads);
-    const int y = t.y0 - kHalo + r, x = t.x0 - kHalo + c;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (y >= 0 && y < hp && x >= 0 && x < pitch)
-      v = *reinterpret_cast<const float4*>(
-          in + t.plane + static_cast<size_t>(y) * pitch + x);
-    *reinterpret_cast<float4*>(frame + r * kFrameCols + c) = v;
-  }
-}
-
-// The mask's rows into ws, each padded to kSeg and placed at the tap
-// offset d = kx - kw / 2 + kHalo, zero elsewhere.
-template <class T>
-__device__ __forceinline__ void put_weights(const T* w, int kh, int kw,
-                                            T* ws) {
-  for (int i = threadIdx.x; i < kh * kSeg; i += kConvThreads) {
-    const int ky = i / kSeg, kx = i % kSeg - kHalo + kw / 2;
-    ws[i] = kx >= 0 && kx < kw ? w[ky * kw + kx] : T(0);
-  }
 }
 
 // (acc + half) >> shift as the JAX quantizer rounds an int32 sum: clamped
@@ -225,35 +161,6 @@ struct Ring {
   }
 };
 
-// Four outputs of row y from column x on: their low bytes, 0 in the ring.
-__device__ __forceinline__ void store_u8(uint8_t* __restrict__ out,
-                                         const Tile& t, const Ring& g, int y,
-                                         int x, const int (&v)[4]) {
-  if (y >= g.hp || x >= g.pitch) return;
-  uint32_t word = 0;
-  if (g.row_in(y)) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (g.col_in(x + j)) word |= (static_cast<uint32_t>(v[j]) & 255u)
-                                   << (8 * j);
-  }
-  *reinterpret_cast<uint32_t*>(out + t.plane +
-                               static_cast<size_t>(y) * g.pitch + x) = word;
-}
-
-__device__ __forceinline__ void store_f32(float* __restrict__ out,
-                                          const Tile& t, const Ring& g, int y,
-                                          int x, const float (&v)[4]) {
-  if (y >= g.hp || x >= g.pitch) return;
-  const bool row = g.row_in(y);
-  const float4 o = make_float4(row && g.col_in(x) ? v[0] : 0.0f,
-                               row && g.col_in(x + 1) ? v[1] : 0.0f,
-                               row && g.col_in(x + 2) ? v[2] : 0.0f,
-                               row && g.col_in(x + 3) ? v[3] : 0.0f);
-  *reinterpret_cast<float4*>(out + t.plane +
-                             static_cast<size_t>(y) * g.pitch + x) = o;
-}
-
 // -- the kernels' arguments, by value -----------------------------------------
 
 struct DenseU8 {
@@ -262,10 +169,23 @@ struct DenseU8 {
 };
 
 // The mask outer(u, v) as two passes: v (kw taps) along the rows, then u
-// (kh taps) down the columns.
+// (kh taps) down the columns; v as base-256 digits, 4 taps a word, 0 past
+// the mask. Each pass ends in min(max((acc + half) >> shift, lo), hi): the
+// row pass's is the identity (0, 0, INT_MIN, INT_MAX) where the passes are
+// not rounded between, a clamp is lo 0, hi 255.
+constexpr int kMaxTaps4 = (kMaxSide + 3) / 4 * 4;   // 20
+constexpr int kDigits = 4;   // base-256 digits of an int32 weight
+struct PassEnd {
+  int half, shift, lo, hi;
+};
 struct TwoPassU8 {
-  int kh, kw, shift, round_between, clamp_rows, clamp_out;
-  int u[kMaxSide], v[kMaxSide];
+  int kh, kw, rows;
+  PassEnd rows_end, out_end;
+  int u[kMaxSide];
+  float uf[kMaxSide];   // u as floats, for the float column pass
+  // vd[i][g]: byte t of digit i of the row weight of tap 4 g + t, the taps
+  // placed at the row pass's anchor (see conv_tile_two_pass_u8).
+  uint32_t vd[kDigits][kMaxTaps4 / 4];
 };
 
 struct DenseF32 {
@@ -274,7 +194,7 @@ struct DenseF32 {
 };
 
 struct SepF32 {
-  int n;
+  int n, rows;
   float wr[kMaxSide], wc[kMaxSide];
 };
 
@@ -290,7 +210,6 @@ struct SepF32 {
 
 constexpr int kDenseRows = 64;
 constexpr int kDenseCols = 64;
-static_assert(kDenseCols == kTileCols, "tile_cols counts dense tiles too");
 
 // The instantiation Of<n>::get() for a side n of 1..kMaxSide (host).
 template <template <int> class Of, int N = 1>
@@ -713,153 +632,400 @@ struct DenseF32Of {
 };
 
 // -- two passes -------------------------------------------------------------
+//
+// A warp takes kSepCols output columns (a lane 4) of a.rows rows. Its
+// frame row fr is plane row y0 - kh / 2 + fr, a.rows + kh - 1 of them,
+// each the plane from 16 bytes (8 floats) left of the warp's columns on (0
+// outside the plane). The warp copies them a group of rows at a time
+// (kU8Group, kF32Group) into its ring of kSepAhead + 1 groups, kSepAhead
+// groups ahead of the one it reads. The rows a warp walks are chosen at
+// launch (a.rows, sep_rows): the buffer's height cut so that the blocks
+// fill the card's resident slots once (on the H100, 64-row tiles in 1.47
+// waves took 94.9 us at N 17 where these took 91.3).
 
-__global__ void __launch_bounds__(kConvThreads)
+constexpr int kSepMinRows = 32;            // the least rows a warp walks
+constexpr int kSepWarps = 4;               // a block's warps, side by side
+constexpr int kSepThreads = 32 * kSepWarps;
+constexpr int kSepCols = 128;              // output columns a warp
+constexpr int kSepAhead = 3;               // groups copied ahead
+// uint8: a ring row holds the plane bytes x0 - 16 .. x0 + 143 (the row
+// pass reads up to byte 155 of it: taps of weight 0 past the mask).
+constexpr int kU8Left = 16, kU8Chunks = (kSepCols + 2 * kU8Left) / 16;
+constexpr int kU8Stride = 16 * kU8Chunks;        // 160
+constexpr int kU8Group = 8;
+// float32: the plane floats x0 - 8 .. x0 + 135.
+constexpr int kF32Left = 8, kF32Chunks = (kSepCols + 2 * kF32Left) / 4;
+constexpr int kF32Stride = 4 * kF32Chunks;       // 144 floats
+constexpr int kF32Group = 4;
+static_assert(kSepCols == 4 * 32, "a lane owns 4 columns");
+static_assert(kU8Left >= kHalo && kF32Left >= kHalo, "the taps lie in a row");
+
+// Copy frame rows g * G .. g * G + G - 1 of the warp into ring slot
+// g % (kSepAhead + 1) (nothing for a group past the frame), 16 bytes a
+// copy, 0 outside the plane; one commit either way. Lane l copies chunks
+// l, l + 32, ... of the group's G * kChunks, chunk i being chunk i %
+// kChunks of row i / kChunks.
+template <int G, int kChunks, int kStride, class T>
+__device__ __forceinline__ void sep_prefetch(const T* __restrict__ in,
+                                             size_t plane, int hp, int pitch,
+                                             int fy0, int x_left, int g,
+                                             int groups, int lane, T* ring) {
+  constexpr int kPer = 16 / sizeof(T);   // values a copy
+  constexpr int kCopies = (G * kChunks + 31) / 32;
+  if (g < groups) {
+    T* slot = ring + (g % (kSepAhead + 1)) * G * kStride;
+    const int y_g = fy0 + g * G;
+    int r = lane / kChunks, c = lane % kChunks;
+#pragma unroll
+    for (int k = 0; k < kCopies; ++k) {
+      if (k + 1 < kCopies || r < G) {
+        const int y = y_g + r, x = x_left + kPer * c;
+        const bool ok = static_cast<unsigned>(y) < static_cast<unsigned>(hp) &&
+                        static_cast<unsigned>(x) < static_cast<unsigned>(pitch);
+        __pipeline_memcpy_async(
+            slot + r * kStride + kPer * c,
+            ok ? in + plane + static_cast<size_t>(y) * pitch + x : in, 16,
+            ok ? 0 : 16);
+      }
+      c += 32 % kChunks;
+      r += 32 / kChunks;
+      if (c >= kChunks) c -= kChunks, ++r;
+    }
+  }
+  __pipeline_commit();
+}
+
+// The walk of a warp, common to both data models: step(row, j) for each
+// frame row j, in order, with the ring row that holds it, in whole groups
+// of G rows: up to G - 1 rows past the frame (step stores no output for
+// them; their copies are real rows or 0).
+template <int G, int kChunks, int kStride, class T, class Step>
+__device__ __forceinline__ void sep_walk(const T* __restrict__ in,
+                                         size_t plane, int hp, int pitch,
+                                         int frame, int fy0, int x_left,
+                                         int lane, T* ring, Step step) {
+  const int groups = (frame + G - 1) / G;
+#pragma unroll
+  for (int g = 0; g < kSepAhead; ++g)
+    sep_prefetch<G, kChunks, kStride>(in, plane, hp, pitch, fy0, x_left, g,
+                                      groups, lane, ring);
+#pragma unroll 1
+  for (int g = 0; g < groups; ++g) {
+    __pipeline_wait_prior(kSepAhead - 1);
+    // Every lane is past group g - 1, whose slot takes group g + kSepAhead,
+    // and sees the rows of group g.
+    __syncwarp();
+    sep_prefetch<G, kChunks, kStride>(in, plane, hp, pitch, fy0, x_left,
+                                      g + kSepAhead, groups, lane, ring);
+    const T* rows = ring + (g % (kSepAhead + 1)) * G * kStride;
+#pragma unroll 4
+    for (int r = 0; r < G; ++r) step(rows + r * kStride, g * G + r);
+  }
+  __pipeline_wait_prior(0);
+}
+
+// d = c + the four products of a's bytes (unsigned) and b's (signed).
+__device__ __forceinline__ uint32_t dp4a_us(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// uint8 row pass of the lane's 4 columns on one ring row, KW taps compiled
+// in (the anchor KW / 2): for output j and taps 4 g .. 4 g + 3, the frame
+// bytes kU8Left - KW / 2 + 4 lane + j + 4 g .. + 3 as one word (a funnel
+// shift of two aligned words), one dp4a for each of the D base-256 digits
+// of the weights (w = sum of d_i 256^i, each d_i in [-128, 127], exact
+// modulo 2^32), the digit sums shifted and added.
+template <int KW, int D>
+__device__ __forceinline__ void row_pass_u8(const uint8_t* row, int lane,
+                                            const TwoPassU8& a,
+                                            uint32_t (&p)[4]) {
+  constexpr int off = kU8Left - KW / 2, sh = off & 3;
+  constexpr int kG = (KW + 3) / 4;              // groups of 4 taps
+  constexpr int kWords = (sh + 4 * kG + 6) / 4;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(row) + lane +
+                        (off >> 2);
+  uint32_t seg[kWords];
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) seg[k] = src[k];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t win[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      const int q = (sh + j) / 4 + g, r = (sh + j) % 4;
+      win[g] = r ? __funnelshift_r(seg[q], seg[q + 1], 8 * r) : seg[q];
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      uint32_t d = 0u;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) d = dp4a_us(win[g], a.vd[i][g], d);
+      p[j] = i == 0 ? d : p[j] + (d << (8 * i));
+    }
+  }
+}
+
+// min(max((acc + half) >> shift, lo), hi) of four sums in place.
+__device__ __forceinline__ void pass_end(uint32_t (&v)[4], const PassEnd& e) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    v[c] = static_cast<uint32_t>(
+        min(max(static_cast<int>(v[c] + static_cast<uint32_t>(e.half)) >>
+                    e.shift,
+                e.lo),
+            e.hi));
+}
+
+// KW == KH: the row pass compiled for the width too (every separable N,
+// the square rank-1 masks); KW == 0: any width, the row pass compiled for
+// kMaxSide taps with the weights placed at the anchor kMaxSide / 2 (0
+// elsewhere; the host places them). D: the digits of the row weights.
+// kFloat: the column pass as FFMA on float values, which the host chooses
+// where every column sum is an integer below 2^24 in magnitude, so that
+// each is exact: the FP32 pipe has twice the IMAD pipe's rate, and the
+// IMAD pipe has the dp4a. A frame row's step has no branch (the output
+// row's store is predicated), so that the compiler may interleave the rows
+// of a group.
+template <int KH, int KW, int D, bool kFloat>
+__global__ void __launch_bounds__(kSepThreads, 4)
     conv_tile_two_pass_u8(const uint8_t* __restrict__ in,
                           uint8_t* __restrict__ out, int hp, int pitch,
                           int row0, const __grid_constant__ TwoPassU8 a) {
-  __shared__ __align__(16) int frame[kFrameRows * kFrameCols];
-  __shared__ __align__(16) int rows[kFrameRows * kTileCols];
-  __shared__ __align__(16) int vs[kSeg];
-  __shared__ int us[kMaxSide];
-  const Tile t = block_tile(hp, pitch, row0);
-  const Ring g{hp, pitch, a.kh / 2, a.kw / 2};
-  put_weights(a.v, 1, a.kw, vs);
-  if (threadIdx.x < a.kh) us[threadIdx.x] = a.u[threadIdx.x];
-  load_frame(in, hp, pitch, t, frame);
-  __syncthreads();
-  const int d0 = kHalo - g.hx, d1 = d0 + a.kw;
-  const uint32_t half = static_cast<uint32_t>(dip::half_of(a.shift));
-  // The row pass over the frame rows the column pass reads.
-  const int r0 = kHalo - g.hy, r1 = kHalo + kTileRows + g.hy;
-  int w[kSeg];
-  load_vec(vs, w);
-  for (int i = threadIdx.x; i < (r1 - r0) * kGroups; i += kConvThreads) {
-    const int r = r0 + i / kGroups, col = 4 * (i % kGroups);
-    int s[kSeg];
-    load_vec(frame + r * kFrameCols + col, s);
-    uint32_t p[4] = {0u, 0u, 0u, 0u};
+  using Acc = std::conditional_t<kFloat, float, uint32_t>;
+  __shared__ __align__(16) uint8_t
+      ring[kSepWarps][(kSepAhead + 1) * kU8Group * kU8Stride];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = (static_cast<int>(blockIdx.x) * kSepWarps + warp) * kSepCols;
+  if (x0 >= pitch) return;
+  const int y0 = row0 + static_cast<int>(blockIdx.y) * a.rows;
+  const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
+  constexpr int hy = KH / 2;
+  const int x = x0 + 4 * lane;
+  const Ring g{hp, pitch, hy, a.kw / 2};
+  uint32_t keep = 0u;   // the lane's bytes outside the zero ring
 #pragma unroll
-    for (int d = 0; d < kMaxSide; ++d) {
-      if (d < d0 || d >= d1) continue;
+  for (int j = 0; j < 4; ++j) keep |= g.col_in(x + j) ? 0xFFu << (8 * j) : 0u;
+  const bool mine = x < pitch;
+  const int outputs = a.rows < hp - y0 ? a.rows : hp - y0;
+  uint8_t* dst = out + plane + static_cast<size_t>(y0) * pitch + x;
+  Acc part[KH > 1 ? KH - 1 : 1][4] = {};
+  // acc + w q: IMAD, or an FFMA exact on integers below 2^24.
+  const auto mad = [&](int k, Acc q, Acc acc) -> Acc {
+    if constexpr (kFloat)
+      return fmaf(q, a.uf[k], acc);
+    else
+      return acc + static_cast<uint32_t>(a.u[k]) * q;
+  };
+  sep_walk<kU8Group, kU8Chunks, kU8Stride>(
+      in, plane, hp, pitch, outputs + KH - 1, y0 - hy, x0 - kU8Left, lane,
+      ring[warp], [&](const uint8_t* row, int j) {
+        uint32_t p[4];
+        row_pass_u8<KW == 0 ? kMaxSide : KW, D>(row, lane, a, p);
+        pass_end(p, a.rows_end);
+        Acc q[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        p[j] += static_cast<uint32_t>(w[d]) * static_cast<uint32_t>(s[j + d]);
-    }
-    int q[4];
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (kFloat)   // |p| < 2^22: the float of the int
+            q[c] = __int_as_float(static_cast<int>(p[c]) + 0x4B400000) -
+                   12582912.0f;
+          else
+            q[c] = p[c];
+        }
+        // Frame row j completes output row j - KH + 1 and adds to the
+        // KH - 1 after it; part[k] moves to part[k - 1].
+        Acc sum[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      q[j] = a.round_between ? quantize(p[j], half, a.shift, a.clamp_rows)
-                             : static_cast<int>(p[j]);
-    *reinterpret_cast<int4*>(rows + r * kTileCols + col) =
-        make_int4(q[0], q[1], q[2], q[3]);
-  }
-  __syncthreads();
-  const int col = 4 * (threadIdx.x % kGroups);
-  for (int o = threadIdx.x / kGroups; o < kTileRows; o += kRowStep) {
-    uint32_t acc[4] = {0u, 0u, 0u, 0u};
-    for (int ky = 0; ky < a.kh; ++ky) {
-      const int4 m = *reinterpret_cast<const int4*>(
-          rows + (o + kHalo - g.hy + ky) * kTileCols + col);
-      const uint32_t u = static_cast<uint32_t>(us[ky]);
-      acc[0] += u * static_cast<uint32_t>(m.x);
-      acc[1] += u * static_cast<uint32_t>(m.y);
-      acc[2] += u * static_cast<uint32_t>(m.z);
-      acc[3] += u * static_cast<uint32_t>(m.w);
-    }
-    int v[4];
+        for (int c = 0; c < 4; ++c)
+          sum[c] = mad(KH - 1, q[c], KH > 1 ? part[0][c] : Acc(0));
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = quantize(acc[j], half, a.shift, a.clamp_out);
-    store_u8(out, t, g, t.y0 + o, t.x0 + col, v);
-  }
+        for (int k = 0; k + 1 < KH - 1; ++k)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            part[k][c] = mad(KH - 2 - k, q[c], part[k + 1][c]);
+        if constexpr (KH > 1) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[KH - 2][c] = mad(0, q[c], Acc(0));
+        }
+        uint32_t done[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          done[c] = kFloat ? static_cast<uint32_t>(__float2int_rn(sum[c]))
+                           : static_cast<uint32_t>(sum[c]);
+        pass_end(done, a.out_end);
+        const int o = j - (KH - 1);
+        // The low bytes of the four (the clamp, or astype(uint8)).
+        const uint32_t word =
+            __byte_perm(__byte_perm(done[0], done[1], 0x0040),
+                        __byte_perm(done[2], done[3], 0x0040), 0x5410) &
+            (g.row_in(y0 + o) ? keep : 0u);
+        if (mine && o >= 0 && o < outputs)
+          *reinterpret_cast<uint32_t*>(dst + static_cast<ptrdiff_t>(o) *
+                                                 pitch) = word;
+      });
 }
 
-__global__ void __launch_bounds__(kConvThreads)
+using TwoPassU8Kernel = void (*)(const uint8_t*, uint8_t*, int, int, int,
+                                 const TwoPassU8);
+// The instantiation of mask height N: the row pass of width N (kSquare)
+// or of any width; 1 or 2 digits with the float column pass, or 4 digits
+// with the integer one (every other mask).
+template <bool kSquare, int D>
+struct TwoPass {
+  template <int N>
+  struct Of {
+    static TwoPassU8Kernel get() {
+      return conv_tile_two_pass_u8<N, kSquare ? N : 0, D, D < 4>;
+    }
+  };
+};
+
+// float32, N taps a side: the row pass over kx ascending, then the column
+// pass over ky ascending, each from its first product (-0.0f + p == p).
+template <int N>
+__global__ void __launch_bounds__(kSepThreads, 4)
     conv_tile_sep_f32(const float* __restrict__ in, float* __restrict__ out,
                       int hp, int pitch, int row0,
                       const __grid_constant__ SepF32 a) {
-  __shared__ __align__(16) float frame[kFrameRows * kFrameCols];
-  __shared__ __align__(16) float rows[kFrameRows * kTileCols];
-  __shared__ __align__(16) float vs[kSeg];
-  __shared__ float us[kMaxSide];
-  const Tile t = block_tile(hp, pitch, row0);
-  const Ring g{hp, pitch, a.n / 2, a.n / 2};
-  put_weights(a.wr, 1, a.n, vs);
-  if (threadIdx.x < a.n) us[threadIdx.x] = a.wc[threadIdx.x];
-  load_frame(in, hp, pitch, t, frame);
-  __syncthreads();
-  const int d0 = kHalo - g.hx, d1 = d0 + a.n;
-  const int r0 = kHalo - g.hy, r1 = kHalo + kTileRows + g.hy;
-  float w[kSeg];
-  load_vec(vs, w);
-  for (int i = threadIdx.x; i < (r1 - r0) * kGroups; i += kConvThreads) {
-    const int r = r0 + i / kGroups, col = 4 * (i % kGroups);
-    float s[kSeg];
-    load_vec(frame + r * kFrameCols + col, s);
-    float p[4] = {-0.0f, -0.0f, -0.0f, -0.0f};
+  __shared__ __align__(16) float
+      ring[kSepWarps][(kSepAhead + 1) * kF32Group * kF32Stride];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = (static_cast<int>(blockIdx.x) * kSepWarps + warp) * kSepCols;
+  if (x0 >= pitch) return;
+  const int y0 = row0 + static_cast<int>(blockIdx.y) * a.rows;
+  const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
+  constexpr int h = N / 2;
+  constexpr int off = kF32Left - h, sh = off & 3;
+  constexpr int kVecs = (sh + N + 3 + 3) / 4;
+  const int x = x0 + 4 * lane;
+  const Ring g{hp, pitch, h, h};
+  bool keep[4];
 #pragma unroll
-    for (int d = 0; d < kMaxSide; ++d) {
-      if (d < d0 || d >= d1) continue;
+  for (int c = 0; c < 4; ++c) keep[c] = g.col_in(x + c);
+  const bool mine = x < pitch;
+  const int outputs = a.rows < hp - y0 ? a.rows : hp - y0;
+  float* dst = out + plane + static_cast<size_t>(y0) * pitch + x;
+  float part[N > 1 ? N - 1 : 1][4] = {};
+  sep_walk<kF32Group, kF32Chunks, kF32Stride>(
+      in, plane, hp, pitch, outputs + N - 1, y0 - h, x0 - kF32Left, lane,
+      ring[warp], [&](const float* row, int j) {
+        const float4* src = reinterpret_cast<const float4*>(row) + lane +
+                            (off >> 2);
+        float s[4 * kVecs];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = add(p[j], mul(s[j + d], w[d]));
-    }
-    *reinterpret_cast<float4*>(rows + r * kTileCols + col) =
-        make_float4(p[0], p[1], p[2], p[3]);
-  }
-  __syncthreads();
-  const int col = 4 * (threadIdx.x % kGroups);
-  for (int o = threadIdx.x / kGroups; o < kTileRows; o += kRowStep) {
-    float v[4] = {-0.0f, -0.0f, -0.0f, -0.0f};
-    for (int ky = 0; ky < a.n; ++ky) {
-      const float4 m = *reinterpret_cast<const float4*>(
-          rows + (o + kHalo - g.hy + ky) * kTileCols + col);
-      const float u = us[ky];
-      v[0] = add(v[0], mul(m.x, u));
-      v[1] = add(v[1], mul(m.y, u));
-      v[2] = add(v[2], mul(m.z, u));
-      v[3] = add(v[3], mul(m.w, u));
-    }
-    store_f32(out, t, g, t.y0 + o, t.x0 + col, v);
-  }
+        for (int k = 0; k < kVecs; ++k) {
+          const float4 v = src[k];
+          s[4 * k] = v.x, s[4 * k + 1] = v.y, s[4 * k + 2] = v.z,
+                s[4 * k + 3] = v.w;
+        }
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) p[c] = mul(s[sh + c], a.wr[0]);
+#pragma unroll
+        for (int kx = 1; kx < N; ++kx)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            p[c] = add(p[c], mul(s[sh + c + kx], a.wr[kx]));
+        float done[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          done[c] = N > 1 ? add(part[0][c], mul(p[c], a.wc[N - 1]))
+                          : mul(p[c], a.wc[0]);
+#pragma unroll
+        for (int k = 0; k + 1 < N - 1; ++k)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            part[k][c] = add(part[k + 1][c], mul(p[c], a.wc[N - 2 - k]));
+        if constexpr (N > 1) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[N - 2][c] = mul(p[c], a.wc[0]);
+        }
+        const int o = j - (N - 1);
+        const bool in = g.row_in(y0 + o);
+        if (mine && o >= 0 && o < outputs)
+          *reinterpret_cast<float4*>(dst + static_cast<ptrdiff_t>(o) *
+                                               pitch) =
+              make_float4(in && keep[0] ? done[0] : 0.0f,
+                          in && keep[1] ? done[1] : 0.0f,
+                          in && keep[2] ? done[2] : 0.0f,
+                          in && keep[3] ? done[3] : 0.0f);
+      });
 }
+
+using SepF32Kernel = void (*)(const float*, float*, int, int, int,
+                              const SepF32);
+template <int N>
+struct SepF32Of {
+  static SepF32Kernel get() { return conv_tile_sep_f32<N>; }
+};
 
 // -- launch -----------------------------------------------------------------
 
-// The columns of tiles of a buffer (gridDim.x), or 0 for one the tiles
-// cannot cover: a pitch the 16-byte frame loads do not take (uint8: a
-// multiple of 16 bytes; float32: of 4 floats), or more planes than
-// gridDim.z holds. Its rows of tiles go on gridDim.y in runs of at most
-// 65,535 (dip::launch_row_runs), so any height is covered.
-unsigned int tile_cols(int channels, int hp, int pitch, int align) {
+// The blocks of `cols` columns across a buffer (gridDim.x), or 0 for one
+// the tiles cannot cover: a pitch the 16-byte frame loads do not take
+// (uint8: a multiple of 16 bytes; float32: of 4 floats), or more planes
+// than gridDim.z holds. Its rows of tiles go on gridDim.y in runs of at
+// most 65,535 (dip::launch_row_runs), so any height is covered.
+unsigned int tile_cols(int channels, int hp, int pitch, int align,
+                       int cols = kDenseCols) {
   if (channels < 1 || channels > kMaxGridZ || hp < 1 || pitch < align ||
       pitch % align != 0)
     return 0;
-  return (pitch + kTileCols - 1) / kTileCols;
+  return (pitch + cols - 1) / cols;
 }
 
 bool side_ok(int n) { return n >= 1 && n <= kMaxSide; }
 
-// The blocks of the mma body of mask height kh resident on the current
-// device at once (SMs x blocks an SM), into *grid; asked of the runtime
-// once per device and height, then read from a table.
-cudaError_t mma_grid(int kh, int* grid) {
-  constexpr int kDevices = 64;
-  static std::atomic<int> known[kDevices][kMaxSide + 1];
+constexpr int kDevices = 64;   // devices whose resident blocks are kept
+
+// SMs x the blocks of `kernel` (`threads` threads) an SM holds at once on
+// the current device, into *blocks: asked of the runtime once per device,
+// then read from known[device].
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads,
+                            std::atomic<int> (&known)[kDevices],
+                            int* blocks) {
   int device, sms, per_sm;
   if (const cudaError_t e = cudaGetDevice(&device)) return e;
-  std::atomic<int>* slot = device < kDevices ? &known[device][kh] : nullptr;
-  if (slot && (*grid = slot->load(std::memory_order_relaxed)) > 0)
+  std::atomic<int>* slot = device < kDevices ? &known[device] : nullptr;
+  if (slot && (*blocks = slot->load(std::memory_order_relaxed)) > 0)
     return cudaSuccess;
   if (const cudaError_t e = cudaDeviceGetAttribute(
           &sms, cudaDevAttrMultiProcessorCount, device))
     return e;
   if (const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel_for<DenseMmaOf>(kh), kConvThreads, 0))
+          &per_sm, kernel, threads, 0))
     return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *grid = sms * per_sm;
-  if (slot) slot->store(*grid, std::memory_order_relaxed);
+  *blocks = sms * per_sm;
+  if (slot) slot->store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+// The blocks of the mma body of mask height kh resident on the device.
+cudaError_t mma_grid(int kh, int* grid) {
+  static std::atomic<int> known[kMaxSide + 1][kDevices];
+  return resident_blocks(kernel_for<DenseMmaOf>(kh), kConvThreads,
+                         known[kh], grid);
+}
+
+// The rows a warp of a two-pass kernel walks on a buffer of hp rows, gx
+// blocks across, `channels` planes: the height cut into as many runs as
+// the card's resident blocks (`known`, one table a kernel) hold at once,
+// so that every block starts in the first wave, at least kSepMinRows.
+template <class Kernel>
+cudaError_t sep_rows(Kernel kernel, std::atomic<int> (&known)[kDevices],
+                     int hp, unsigned int gx, int channels, int* rows) {
+  int slots;
+  if (const cudaError_t e = resident_blocks(kernel, kSepThreads, known,
+                                            &slots))
+    return e;
+  const long long strips = static_cast<long long>(gx) * channels;
+  const long long runs = slots / strips > 1 ? slots / strips : 1;
+  const long long r = (hp + runs - 1) / runs;
+  *rows = static_cast<int>(r > kSepMinRows ? r : kSepMinRows);
   return cudaSuccess;
 }
 
@@ -928,16 +1094,71 @@ DIP_API int dip_conv_tile_two_pass_u8(const void* in, void* out, int channels,
                                       const int* u, const int* v, int shift,
                                       int round_between, int clamp_rows,
                                       int clamp_out, void* stream) {
-  const unsigned int gx = tile_cols(channels, hp, pitch, 16);
+  const unsigned int gx =
+      tile_cols(channels, hp, pitch, 16, kSepWarps * kSepCols);
   if (!side_ok(kh) || !side_ok(kw) || shift < 0 || shift > 31 || gx == 0)
     return kInvalid;
-  TwoPassU8 a{kh, kw, shift, round_between != 0, clamp_rows != 0,
-              clamp_out != 0, {}, {}};
+  // The passes' ends: the row pass's the identity unless rounded between.
+  const int half = dip::half_of(shift);
+  const PassEnd identity{0, 0, INT_MIN, INT_MAX};
+  const PassEnd rows_end{half, shift, clamp_rows ? 0 : INT_MIN,
+                         clamp_rows ? 255 : INT_MAX};
+  TwoPassU8 a{kh, kw, 0, round_between ? rows_end : identity,
+              {half, shift, clamp_out ? 0 : INT_MIN, clamp_out ? 255 : INT_MAX},
+              {}, {}};
   for (int i = 0; i < kh; ++i) a.u[i] = u[i];
-  for (int i = 0; i < kw; ++i) a.v[i] = v[i];
-  return dip::launch_row_runs(hp, kTileRows, [&](unsigned int gy, int row0) {
-    conv_tile_two_pass_u8<<<dim3(gx, gy, channels), kConvThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  // Row tap kx at the row pass's tap first + kx: from 0 where kw == kh,
+  // else at the anchor kMaxSide / 2 of the any-width pass. Each weight as
+  // balanced base-256 digits modulo 2^32: d = the low byte as a signed
+  // one, then (w - d) / 256.
+  const int first = kh == kw ? 0 : kMaxSide / 2 - kw / 2;
+  int digits = 1;
+  for (int i = 0; i < kw; ++i) {
+    uint32_t w = static_cast<uint32_t>(v[i]);
+    const int t = first + i;
+    for (int d = 0; d < kDigits && w != 0u; ++d) {
+      const int digit = static_cast<int8_t>(w & 255u);
+      a.vd[d][t / 4] |= (static_cast<uint32_t>(digit) & 255u) << (8 * (t % 4));
+      w = (w - static_cast<uint32_t>(digit)) >> 8;
+      if (d + 1 > digits) digits = d + 1;
+    }
+  }
+  // The float column pass where every value it takes is an integer below
+  // 2^22 and every column sum, the rounding's half included, below 2^24:
+  // the row sums lie in [p_lo, p_hi], the values the column pass takes
+  // (rounded, or clamped) in [-q_max, q_max].
+  long long p_lo = 0, p_hi = 0, u_sum = 0;
+  for (int i = 0; i < kw; ++i) (v[i] < 0 ? p_lo : p_hi) += 255LL * v[i];
+  for (int i = 0; i < kh; ++i) {
+    u_sum += u[i] < 0 ? -1LL * u[i] : u[i];
+    a.uf[i] = static_cast<float>(u[i]);
+  }
+  const long long rh = a.rows_end.half;
+  const long long q_lo = round_between ? (p_lo + rh) >> shift : p_lo;
+  const long long q_hi = round_between ? (p_hi + rh) >> shift : p_hi;
+  const long long q_max =
+      round_between && clamp_rows ? 255 : (q_hi > -q_lo ? q_hi : -q_lo);
+  const bool float_cols = p_hi + rh < (1LL << 31) && p_lo >= -(1LL << 31) &&
+                          q_max < (1LL << 22) &&
+                          q_max * u_sum + half <= (1LL << 24);
+  // Any other mask, or 3 digits, takes the 4-digit kernel (its weights' high
+  // digits 0) with the integer column pass.
+  const int d = float_cols && digits <= 2 ? digits - 1 : 2;
+  const int body = (kh == kw ? 0 : 3) + d;
+  static std::atomic<int> known[6][kMaxSide + 1][kDevices];
+  const TwoPassU8Kernel kernel =
+      body == 0   ? kernel_for<TwoPass<true, 1>::Of>(kh)
+      : body == 1 ? kernel_for<TwoPass<true, 2>::Of>(kh)
+      : body == 2 ? kernel_for<TwoPass<true, 4>::Of>(kh)
+      : body == 3 ? kernel_for<TwoPass<false, 1>::Of>(kh)
+      : body == 4 ? kernel_for<TwoPass<false, 2>::Of>(kh)
+                  : kernel_for<TwoPass<false, 4>::Of>(kh);
+  if (const cudaError_t e = sep_rows(kernel, known[body][kh], hp, gx,
+                                     channels, &a.rows))
+    return static_cast<int>(e);
+  return dip::launch_row_runs(hp, a.rows, [&](unsigned int gy, int row0) {
+    kernel<<<dim3(gx, gy, channels), kSepThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), hp, pitch,
         row0, a);
   });
@@ -964,16 +1185,22 @@ DIP_API int dip_conv_tile_dense_f32(const void* in, void* out, int channels,
 DIP_API int dip_conv_tile_sep_f32(const void* in, void* out, int channels,
                                   int hp, int pitch, int n, const float* wr,
                                   const float* wc, void* stream) {
-  const unsigned int gx = tile_cols(channels, hp, pitch, 4);
+  const unsigned int gx =
+      tile_cols(channels, hp, pitch, 4, kSepWarps * kSepCols);
   if (!side_ok(n) || gx == 0) return kInvalid;
-  SepF32 a{n, {}, {}};
+  SepF32 a{n, 0, {}, {}};
   for (int i = 0; i < n; ++i) {
     a.wr[i] = wr[i];
     a.wc[i] = wc[i];
   }
-  return dip::launch_row_runs(hp, kTileRows, [&](unsigned int gy, int row0) {
-    conv_tile_sep_f32<<<dim3(gx, gy, channels), kConvThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  static std::atomic<int> known[kMaxSide + 1][kDevices];
+  const SepF32Kernel kernel = kernel_for<SepF32Of>(n);
+  if (const cudaError_t e = sep_rows(kernel, known[n], hp, gx, channels,
+                                     &a.rows))
+    return static_cast<int>(e);
+  return dip::launch_row_runs(hp, a.rows, [&](unsigned int gy, int row0) {
+    kernel<<<dim3(gx, gy, channels), kSepThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
         row0, a);
   });

@@ -395,9 +395,7 @@ def _convolution_launch(shape: tuple, data: bytes, shift: int,
         return (f"window_u8<ConvDense<{kh},{kw}>>", "dip_conv_dense_u8",
                 (kh, kw, _int_array(int_mask), shift))
     if uv is not None:   # packable: no sum wraps, and the clamp is exact
-        return ("conv_tile_two_pass_u8", "dip_conv_tile_two_pass_u8",
-                (kh, kw, _int_array(uv[0]), _int_array(uv[1]), shift, 0, 0,
-                 1))
+        return two_pass_launch(uv[0], uv[1], shift, False, False, True)
     clamp = int(clamps(int_mask, shift))
     if fits_int8(int_mask):
         win = mma_windows(int_mask).ravel()
@@ -406,6 +404,51 @@ def _convolution_launch(shape: tuple, data: bytes, shift: int,
                  clamp))
     return ("conv_tile_dense_u8", "dip_conv_tile_dense_u8",
             (kh, kw, _int_array(int_mask), shift, clamp))
+
+
+def two_pass_launch(u, v, shift: int, round_between: bool, clamp_rows: bool,
+                    clamp_out: bool) -> tuple:
+    """(kernel name, C entry point, its arguments after the geometry) of
+    ``conv_tile_two_pass_u8`` for the correlation with ``outer(u, v)``: a
+    row pass with ``v``, rounded between the passes (clamped by
+    ``clamp_rows``) where ``round_between`` is set, then a column pass
+    with ``u``, rounded and clamped by ``clamp_out``."""
+    u, v = np.ravel(u), np.ravel(v)
+    return ("conv_tile_two_pass_u8", "dip_conv_tile_two_pass_u8",
+            (len(u), len(v), _int_array(u), _int_array(v), int(shift),
+             int(round_between), int(clamp_rows), int(clamp_out)))
+
+
+def two_pass_body(u, v, shift: int, round_between: bool,
+                  clamp_rows: bool) -> tuple:
+    """(square, digits, float columns) of the ``conv_tile_two_pass_u8``
+    instantiation its C entry point picks for these passes: the row pass
+    compiled for kw where kw == kh (else for 17 taps), 1 or 2 base-256
+    digits of the row weights with the column pass in float (where every
+    column sum is an integer below 2^24, exact), else 4 digits with it in
+    uint32."""
+    u, v = np.ravel(u).astype(np.int64), np.ravel(v).astype(np.int64)
+    digits = 1
+    for w in v.tolist():
+        w &= 0xFFFFFFFF
+        n = 0
+        while w and n < 4:
+            d = (w & 255) - (256 if w & 128 else 0)
+            w = ((w - d) & 0xFFFFFFFF) >> 8
+            n += 1
+        digits = max(digits, n)
+    half = (1 << shift) >> 1
+    rh = half if round_between else 0
+    p_lo, p_hi = 255 * int(v.clip(max=0).sum()), 255 * int(v.clip(min=0).sum())
+    q_lo, q_hi = (((p_lo + rh) >> shift, (p_hi + rh) >> shift)
+                  if round_between else (p_lo, p_hi))
+    q_max = 255 if round_between and clamp_rows else max(q_hi, -q_lo)
+    float_cols = (p_hi + rh < 1 << 31 and p_lo >= -(1 << 31)
+                  and q_max < 1 << 22
+                  and q_max * int(np.abs(u).sum()) + half <= 1 << 24)
+    if float_cols and digits <= 2:
+        return len(u) == len(v), digits, True
+    return len(u) == len(v), 4, False
 
 
 def convolution_plain(planar: torch.Tensor, int_mask: np.ndarray,
@@ -457,9 +500,8 @@ def _separated_launch(row: tuple, col: tuple, shift: int) -> tuple:
                                       or wraps(col_mask, shift)):
         return (f"window_u8<ConvSep<{n}>>", "dip_conv_sep_u8",
                 (n, _int_array(row_mask), _int_array(col_mask), shift))
-    return ("conv_tile_two_pass_u8", "dip_conv_tile_two_pass_u8",
-            (n, n, _int_array(col_mask), _int_array(row_mask), shift, 1,
-             int(clamps(row_mask, shift)), int(clamps(col_mask, shift))))
+    return two_pass_launch(col_mask, row_mask, shift, True,
+                           clamps(row_mask, shift), clamps(col_mask, shift))
 
 
 def convolution_separated(planar: torch.Tensor, row_mask: np.ndarray,

@@ -388,6 +388,211 @@ def test_mma_emulation_equals_conv_dense_plain(kh, kw, shift):
                                   want.numpy())
 
 
+def two_pass_knobs() -> dict:
+    """The two-pass kernels' geometry, read from csrc/conv.cu: the least
+    rows a warp walks (the launch picks more on a tall buffer) and the
+    columns a warp owns."""
+    src = os.path.join(os.path.dirname(window.__file__), "kernels", "csrc",
+                       "conv.cu")
+    with open(src) as f:
+        text = f.read()
+    return {"rows": int(re.search(r"kSepMinRows = (\d+);", text).group(1)),
+            "cols": int(re.search(r"kSepCols = (\d+);", text).group(1))}
+
+
+def emulate_two_pass(planar: np.ndarray, u, v, row_pass, col_step,
+                     finish, zero, rows=None):
+    """The walk of conv.cu's two-pass kernels, tile by tile of ``rows``
+    output rows (default: the least a warp walks): frame row j of a tile is plane row y0 - kh // 2 + j (0
+    off the buffer), its row pass ``row_pass(values, x)`` for every column
+    (the values a whole padded row, the taps from x - kw // 2), then the
+    register ring: frame row j completes output row j - kh + 1 (``done``,
+    from part[0]) and adds its term with weight u[kh - 2 - k] to part[k],
+    which moves to part[k - 1]; ``col_step(acc, q, w)`` adds one term,
+    ``col_step(None, q, w)`` starts a sum. ``finish(done)`` is the output;
+    the zero ring of kh // 2 rows and kw // 2 columns is ``zero``."""
+    kh, kw = len(u), len(v)
+    hy, hx = kh // 2, kw // 2
+    c, hp, pitch = planar.shape
+    rows = rows or two_pass_knobs()["rows"]
+    pad = np.zeros((c, hp + 2 * kh + rows, pitch + 2 * PAD + 24),
+                   planar.dtype)
+    pad[:, kh:kh + hp, 2 * PAD:2 * PAD + pitch] = planar
+    out = np.zeros((c, hp, pitch), np.float64)
+    for y0 in range(0, hp, rows):
+        parts = [None] * (kh - 1)
+        for j in range(rows + kh - 1):
+            y = y0 - hy + j
+            q = row_pass(pad[:, kh + y], 2 * PAD - hx)
+            done = col_step(parts[0] if kh > 1 else None, q, u[kh - 1])
+            parts = [col_step(parts[k + 1], q, u[kh - 2 - k])
+                     for k in range(kh - 2)] + (
+                [col_step(None, q, u[0])] if kh > 1 else [])
+            o = j - (kh - 1)
+            if 0 <= o < rows and y0 + o < hp:
+                out[:, y0 + o] = finish(done)
+    out[:, :hy], out[:, hp - hy:] = zero, zero
+    out[..., :hx], out[..., pitch - hx:] = zero, zero
+    return out
+
+
+def weight_digits(w: int) -> list:
+    """The balanced base-256 digits conv.cu's host code splits a row
+    weight into: the low byte as a signed one, then (w - d) / 256, modulo
+    2^32, until nothing is left (at most 4)."""
+    w &= 0xFFFFFFFF
+    out = []
+    while w and len(out) < 4:
+        d = (w & 255) - (256 if w & 128 else 0)
+        out.append(d)
+        w = ((w - d) & 0xFFFFFFFF) >> 8
+    return out
+
+
+def emulate_two_pass_u8(planar, u, v, shift, round_between, clamp_rows,
+                        clamp_out):
+    """conv_tile_two_pass_u8: the row pass as dp4a products of frame bytes
+    and the weights' base-256 digits over whole groups of 4 taps (kw taps
+    from the anchor kw // 2 where kw == kh, else 17 with the weights at
+    the anchor 8), each digit's sum shifted by 8 bits a digit, uint32
+    sums; (acc + half) >> shift arithmetic, clamped by the flags."""
+    kh, kw = len(u), len(v)
+    side = kw if kw == kh else window.MAX_CONV_SIDE
+    first = 0 if kw == kh else side // 2 - kw // 2
+    taps = 4 * ((side + 3) // 4)
+    digits = np.zeros((4, taps), np.int64)
+    for t, w in enumerate(v):
+        for i, d in enumerate(weight_digits(int(w))):
+            digits[i, first + t] = d
+    planes = max([len(weight_digits(int(w))) for w in v] + [1])
+    half = (1 << shift) >> 1
+    pitch = planar.shape[2]
+
+    def quantize(acc, clamp):
+        s32 = ((acc + half) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        q = s32.astype(np.int64) >> shift
+        return np.clip(q, 0, 255) if clamp else q
+
+    def row_pass(values, x0):
+        x0 -= side // 2 - kw // 2 if kw != kh else 0
+        p = 0
+        for i in range(planes):
+            d = sum(int(digits[i, t]) * values[:, x0 + t:x0 + t + pitch]
+                    .astype(np.int64) for t in range(taps))
+            p = p + (d << (8 * i))
+        p = p & 0xFFFFFFFF
+        return quantize(p, clamp_rows) & 0xFFFFFFFF if round_between else p
+
+    def col_step(acc, q, w):
+        t = (int(w) * q) & 0xFFFFFFFF
+        return t if acc is None else (acc + t) & 0xFFFFFFFF
+
+    return emulate_two_pass(planar, u, v, row_pass, col_step,
+                            lambda d: quantize(d, clamp_out) & 255,
+                            0).astype(np.uint8)
+
+
+@pytest.mark.parametrize("w", [0, 1, -1, 127, 128, -128, -129, 200, 12870,
+                               1 << 22, -(1 << 22), 1 << 23, (1 << 31) - 1,
+                               -(1 << 31)])
+def test_weight_digits_are_balanced_and_exact(w):
+    digits = weight_digits(w)
+    assert all(-128 <= d <= 127 for d in digits) and len(digits) <= 4
+    assert (sum(d << (8 * i) for i, d in enumerate(digits)) - w) % (
+        1 << 32) == 0
+
+
+BINOMIAL = {n: np.array([__import__("math").comb(n - 1, k)
+                         for k in range(n)]) for n in (9, 17)}
+TWO_PASS_BODIES = [
+    # (label, u, v, shift, round_between, clamp_rows, body)
+    ("binomial 9, rounded", BINOMIAL[9], BINOMIAL[9], 8, True, False,
+     (True, 1, True)),
+    ("binomial 17, rounded", BINOMIAL[17], BINOMIAL[17], 16, True, False,
+     (True, 2, True)),
+    ("box 7x7, unrounded", np.ones(7), np.ones(7), 6, False, False,
+     (True, 1, True)),
+    ("box 1x17, unrounded", np.ones(1), np.ones(17), 4, False, False,
+     (False, 1, True)),
+    ("either sign 9x3, rounded, clamped", np.array([-6] * 9),
+     np.array([8, -6, 8]), 3, True, True, (False, 1, True)),
+    ("a row weight of 40000", np.ones(5), np.array([1, 2, 40000, 2, 1]), 8,
+     True, True, (True, 4, False)),
+    ("column sums past 2^24", np.array([70000, 1, 1]), np.ones(3), 8,
+     True, True, (True, 4, False)),
+    ("row sums past 2^22 unrounded", np.ones(3), np.array([1, 20000, 1]), 8,
+     False, False, (True, 4, False)),
+    ("wraps", np.full(5, 1 << 22), np.full(5, 3 << 21), 3, True, True,
+     (True, 4, False)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(TWO_PASS_BODIES)))
+def test_two_pass_takes_the_body_its_sums_fit(case):
+    label, u, v, shift, rnd, clamp_rows, want = TWO_PASS_BODIES[case]
+    assert window.two_pass_body(u, v, shift, rnd, clamp_rows) == want, label
+
+
+@pytest.mark.parametrize("case", range(len(TWO_PASS_BODIES)))
+def test_float_column_pass_is_exact_where_chosen(case):
+    # Where the float column pass is chosen, every column sum over the
+    # worst row values (the bound of each, in either sign) is an integer
+    # below 2^24: float32 sums equal the int64 ones.
+    label, u, v, shift, rnd, clamp_rows, body = TWO_PASS_BODIES[case]
+    if not body[2]:
+        return
+    v = np.asarray(v, np.int64)
+    half = (1 << shift) >> 1
+    p = 255 * np.array([v.clip(max=0).sum(), v.clip(min=0).sum()])
+    q_ends = (p + half) >> shift if rnd else p
+    if rnd and clamp_rows:
+        q_ends = np.clip(q_ends, 0, 255)
+    rng = np.random.default_rng(case)
+    for q in (np.full(len(u), q_ends[1]), np.full(len(u), q_ends[0]),
+              rng.integers(q_ends[0], q_ends[1] + 1, len(u)),
+              np.where(np.asarray(u) < 0, q_ends[0], q_ends[1])):
+        exact = np.cumsum(np.asarray(u, np.int64) * q)
+        acc = np.float32(0)
+        for w, x in zip(np.asarray(u, np.float32), q.astype(np.float32)):
+            acc = np.float32(acc + np.float32(w * x))
+        assert np.abs(exact).max() + half <= 1 << 24, label
+        assert float(acc) == float(exact[-1]), label
+
+
+@pytest.mark.parametrize("kh,kw,shift", [(1, 1, 0), (17, 17, 5), (9, 9, 3),
+                                         (2, 2, 2), (16, 16, 4), (1, 17, 4),
+                                         (17, 1, 4), (9, 3, 2), (4, 11, 3)])
+def test_two_pass_u8_emulation_equals_conv_rank1_plain(kh, kw, shift):
+    rng = np.random.default_rng(40 * kh + kw)
+    u, v = rng.integers(0, 4, kh), rng.integers(0, 4, kw)
+    planar = rng.integers(0, 256, (2, 150, 48), np.uint8)
+    launch = window.two_pass_launch(u, v, shift, False, False, True)
+    assert launch[2][:2] == (kh, kw) and launch[2][4:] == (shift, 0, 0, 1)
+    want = window.conv_rank1_plain(torch.from_numpy(planar), u, v, shift)
+    np.testing.assert_array_equal(
+        emulate_two_pass_u8(planar, u, v, shift, False, False, True),
+        want.numpy())
+
+
+@pytest.mark.parametrize("n,lo,hi,shift", [(1, -6, 9, 3), (2, -6, 9, 3),
+                                           (8, -6, 9, 3), (17, -6, 9, 3),
+                                           (9, 0, 5, 5), (16, 0, 3, 5),
+                                           (5, 1 << 22, 1 << 23, 3)])
+def test_two_pass_u8_emulation_equals_conv_sep_plain(n, lo, hi, shift):
+    rng = np.random.default_rng(50 + n)
+    row = rng.integers(lo, hi, (1, n)).astype(np.int32)
+    col = rng.integers(lo, hi, (n, 1)).astype(np.int32)
+    planar = rng.integers(0, 256, (3, 131, 32), np.uint8)
+    extra = window.convolution_separated_launch(row, col, shift)[2]
+    cr, co = window.clamps(row, shift), window.clamps(col, shift)
+    if n not in window.STRIP_CONV_SIZES:
+        assert extra[4:] == (shift, 1, int(cr), int(co))
+    want = window.conv_sep_plain(torch.from_numpy(planar), row, col, shift)
+    np.testing.assert_array_equal(
+        emulate_two_pass_u8(planar, col.ravel(), row.ravel(), shift, True, cr,
+                            co), want.numpy())
+
+
 # -- float32 ------------------------------------------------------------------
 
 def dense_atol(mask: np.ndarray, shift: int) -> float:
@@ -504,6 +709,49 @@ def test_kernel_side_equals_the_wrappers():
     assert windows == window.MMA_WINDOWS
 
 
+def emulate_sep_f32(planar: np.ndarray, row: np.ndarray, col: np.ndarray,
+                    shift: int) -> np.ndarray:
+    """conv_tile_sep_f32 in float32: the row pass from its first product
+    over kx ascending, each output's column sum taken from the register
+    ring in ky order."""
+    wr = np.ravel(spec.mask_float(row, shift)).astype(np.float32)
+    wc = np.ravel(spec.mask_float(col, shift)).astype(np.float32)
+    pitch = planar.shape[2]
+
+    def row_pass(values, x0):
+        p = values[:, x0:x0 + pitch] * wr[0]
+        for kx in range(1, len(wr)):
+            p = p + values[:, x0 + kx:x0 + kx + pitch] * wr[kx]
+        return p
+
+    def col_step(acc, q, w):
+        return q * np.float32(w) if acc is None else acc + q * np.float32(w)
+
+    return emulate_two_pass(planar, wc, wr, row_pass, col_step, lambda d: d,
+                            0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 9, 16, 17])
+def test_sep_f32_emulation_equals_conv_sep_plain(n):
+    # Tolerance 0: the register ring keeps the JAX order of the sums.
+    rng = np.random.default_rng(70 + n)
+    row = rng.integers(-1000, 1001, (1, n)).astype(np.int32)
+    col = rng.integers(-1000, 1001, (n, 1)).astype(np.int32)
+    planar = rng.random((2, 140, 40), dtype=np.float32)
+    want = f32.conv_sep_plain(torch.from_numpy(planar), row, col, 10)
+    got = emulate_sep_f32(planar, row, col, 10)
+    assert np.array_equal(got, want.numpy())
+
+
+def test_two_pass_geometry_fits_the_ring():
+    # Every tap a lane's row pass reads lies in the 16 bytes (8 floats)
+    # of halo a ring row holds beside the warp's 128 columns.
+    knobs = two_pass_knobs()
+    assert knobs["cols"] == 128 and knobs["rows"] >= 16
+    for n in range(1, window.MAX_CONV_SIDE + 1):
+        assert n // 2 <= PAD and n - 1 - n // 2 <= PAD
+
+
 def jax_body(mask: np.ndarray, shift: int, monkeypatch) -> str:
     """The name of the body make_convolution builds for ``mask``."""
     with monkeypatch.context() as m:
@@ -603,4 +851,19 @@ def test_every_dense_side_matches_plain_on_card(shape):
                                           shape)
     assert set(errs) == {"conv_tile_dense_u8", "conv_tile_dense_mma_u8",
                          "conv_tile_dense_f32"}
+    assert not any(errs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 129, 48), (3, 150, 1200)])
+def test_every_two_pass_side_matches_plain_on_card(shape):
+    # chip_smoke.py [3l]'s sweep: every N of 1..17 on each two-pass kernel
+    # (every instantiation: uint8 rounded between, unrounded N x N and
+    # N x kw; float32), tolerance 0.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import chip_smoke
+    errs = chip_smoke.compare_two_pass_sides(np.random.default_rng(shape[1]),
+                                             shape)
+    assert set(errs) == {"conv_tile_two_pass_u8", "conv_tile_sep_f32"}
     assert not any(errs.values())
