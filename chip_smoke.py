@@ -137,9 +137,12 @@ csrc`` with nvcc, then, with no fallback anywhere:
    divided by K is 20 times as long);
    [4p] ``--profile`` (``--rounds 20 --pipeline``): the Chrome trace names
    ``window_u8_strip`` and ``pipeline_u8`` among its CUDA kernels, and
-   ``benchmarks/h100/host_share.py`` splits each kernel's rounds into
-   harness, wrapper, launch, allocation, synchronize and idle; then the
-   seconds the phases of this paragraph took;
+   ``benchmarks/h100/host_share.py`` splits each kernel's rounds, found
+   by the port's spans, into harness, wrapper, launch, allocation,
+   synchronize and idle, and the idle time of a round by the span the
+   host was in (``idle_by_span``, its parts summing to the idle time
+   within 1 %), beside the clock skew; then the seconds the phases of
+   this paragraph took;
    [4s] row sharding on the one card (every shard on cuda:0): each
    kernel op of both models and the main-path chain on a
    ``ShardedBenchmarkSession`` of 2, 3 and 4 shards of the benchmark
@@ -2025,7 +2028,8 @@ def load_host_share():
 def drive_profile(img) -> list[dict]:
     """[4p] The CLI with --profile on the uint8 kernel path: the Chrome
     trace names window_u8_strip and pipeline_u8 among its CUDA kernels;
-    the host share of each kernel's rounds split by host_share.py."""
+    the host share of each kernel's rounds split by host_share.py, and
+    each round's idle time by the port's span the host was in."""
     t0 = time.perf_counter()
     prof = fresh("profile")
     rc, text = run_cli([save_benchmark_image(img), fresh("profile-out"),
@@ -2057,6 +2061,17 @@ def drive_profile(img) -> list[dict]:
         print(f"    {r['kernel']} | " + " | ".join(
             f"{r[p]:.1f}" for p in host_share.PARTS)
             + f" | {100 * r['idle']:.0f} %")
+    print(f"  idle µs a round by the port's span open on the host (means; "
+          f"off by up to the clock skew, median {skew[1]:.1f} µs):")
+    print("    kernel | idle | " + " | ".join(host_share.SPAN_COLUMNS))
+    for r in rows:
+        by = r["idle_by_span"]
+        parts = sum(by.values())
+        check(abs(parts - r["idle_us"]) <= 0.01 * r["idle_us"],
+              f"{r['kernel']}: idle_by_span's parts sum to {parts:.2f} "
+              f"µs, its idle time is {r['idle_us']:.2f}")
+        print(f"    {r['kernel']} | {r['idle_us']:.1f} | " + " | ".join(
+            f"{by.get(c, 0.0):.1f}" for c in host_share.SPAN_COLUMNS))
     return rows
 
 

@@ -150,9 +150,9 @@ def build_parser() -> ArgumentParser:
                              "(K = 10, 40, 160), with the spread of the "
                              "slope and L2-warm or L2-cold. No --chained")
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="Trace the run with torch.profiler (CPU, CUDA "
-                             "and Python calls) into DIR/trace.json, a "
-                             "Chrome trace")
+                        help="Trace the run with torch.profiler (CPU and "
+                             "CUDA activity and the port's spans) into "
+                             "DIR/trace.json, a Chrome trace")
     return parser
 
 
@@ -277,8 +277,9 @@ def main(argv: list[str] | None = None) -> int:
 
 def profile(execute, outdir: str, device) -> str:
     """Run ``execute`` under torch.profiler, CPU and (on the card) CUDA
-    activity with the Python calls, and write the Chrome trace to
-    ``outdir/trace.json``; returns its path."""
+    activity with the port's spans (``runtime/tracing.py``, the ``dip.*``
+    annotations), and write the Chrome trace to ``outdir/trace.json``;
+    returns its path."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -287,7 +288,7 @@ def profile(execute, outdir: str, device) -> str:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(outdir, exist_ok=True)
     path = os.path.join(outdir, "trace.json")
-    with torch_profile(activities=activities, with_stack=True) as prof:
+    with torch_profile(activities=activities) as prof:
         execute()
     prof.export_chrome_trace(path)
     return path

@@ -46,7 +46,7 @@ from .. import spec
 from ..ops import kernels, library
 from ..parallel.halo import Mesh, make_mesh
 from ..parallel.kernel_ops import chain_row_padding, sharded_kernel_chain
-from ..runtime import DeviceGateError, gate_backend
+from ..runtime import DeviceGateError, gate_backend, tracing
 from ..utils.image import (PlanarLayout, from_planar_padded,
                            from_resident_planar, is_image_file, load_image,
                            make_layout, save_image, stack_planar_padded,
@@ -135,8 +135,9 @@ def _dispatch_sharded_chain(images: np.ndarray, cols: tuple[str, ...],
     if pad:
         stack = np.concatenate([stack, stack[:, h - pad:][:, ::-1]], axis=1)
     op, layout = _sharded_chain(mesh, cols, h + pad, w, b + bpad)
-    resident = to_resident_planar(np.transpose(stack, (0, 3, 1, 2)), layout,
-                                  n_space)
+    with tracing.span("bake"):
+        resident = to_resident_planar(np.transpose(stack, (0, 3, 1, 2)),
+                                      layout, n_space)
     b_loc = (b + bpad) // n_data
     sources = tuple(resident[s][d * b_loc:(d + 1) * b_loc]
                     for d in range(n_data) for s in range(n_space))
@@ -148,8 +149,9 @@ def _dispatch_sharded_chain(images: np.ndarray, cols: tuple[str, ...],
                     for src, dev in zip(sources, devices)))
     if not on_card:
         return _ShardedToken(layout, outs, (), sources, h, b, mesh)
-    results = tuple(torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                    for out in outs)
+    with tracing.span("pin_alloc"):
+        results = tuple(torch.empty(out.shape, dtype=out.dtype,
+                                    pin_memory=True) for out in outs)
     for result, out in zip(results, outs):
         result.copy_(out, non_blocking=True)
     done = []
@@ -192,7 +194,8 @@ def _dispatch_batch(images: np.ndarray, csv_column, device):
         if on_card:
             source = source.pin_memory()
     else:
-        source = stack_planar_padded(images, layout, pin_memory=on_card)
+        with tracing.span("bake"):
+            source = stack_planar_padded(images, layout, pin_memory=on_card)
     stack = source.to(device, non_blocking=True) if on_card else source
     if isinstance(csv_column, (list, tuple)):
         outs = _batched_chain(layout, cols, b)(stack)
@@ -202,7 +205,8 @@ def _dispatch_batch(images: np.ndarray, csv_column, device):
         outs = library.IMAGE_OPS[csv_column](stack)
     if not on_card:
         return _Token(layout, outs, None, source)
-    result = torch.empty(outs.shape, dtype=torch.uint8, pin_memory=True)
+    with tracing.span("pin_alloc"):
+        result = torch.empty(outs.shape, dtype=torch.uint8, pin_memory=True)
     result.copy_(outs, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
@@ -215,15 +219,17 @@ def _fetch_batch(token) -> np.ndarray:
         for event in token.done:
             event.synchronize()
         layout = token.layout
-        valid = np.concatenate([
-            from_resident_planar(row, layout, layout.height, token.height)
-            for row in token.mesh.rows(token.results)])[:token.batch]
-        return np.ascontiguousarray(np.transpose(valid, (0, 2, 3, 1)))
+        with tracing.span("crop"):
+            valid = np.concatenate([
+                from_resident_planar(row, layout, layout.height, token.height)
+                for row in token.mesh.rows(token.results)])[:token.batch]
+            return np.ascontiguousarray(np.transpose(valid, (0, 2, 3, 1)))
     if token.done is not None:
         token.done.synchronize()
     if token.layout is None:
         return token.result.numpy()
-    return from_planar_padded(token.result, token.layout)
+    with tracing.span("crop"):
+        return from_planar_padded(token.result, token.layout)
 
 
 def _device(device) -> torch.device:
@@ -236,9 +242,13 @@ def process_batch(images: np.ndarray, csv_column="Fused-Pipeline",
     """Run one op of ``COLUMNS``, or given a list of columns their fused
     chain, over a uint8 ``(B, H, W, 3)`` stack on ``device`` (default: the
     card), or a chain or the pipeline sharded over ``mesh``; returns the
-    ``(B, H, W, 3)`` result."""
+    ``(B, H, W, 3)`` result. The call is the port's ``batch`` span, and
+    counts its images under ``images`` (``runtime/tracing.py``)."""
     target = mesh if mesh is not None else _device(device)
-    return _fetch_batch(_dispatch_batch(images, csv_column, target))
+    with tracing.span("batch"):
+        out = _fetch_batch(_dispatch_batch(images, csv_column, target))
+    tracing.count("images", len(out))
+    return out
 
 
 def _probe_shape(path: str) -> tuple:

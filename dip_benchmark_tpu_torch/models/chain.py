@@ -45,6 +45,7 @@ import torch
 
 from .. import oracle, oracle_f32, spec
 from ..ops import f32, kernels, point, window
+from ..runtime import tracing
 from ..utils.image import PlanarLayout
 
 # The deepest chain halo either package accepts. The JAX package's bound is
@@ -302,7 +303,7 @@ class FusedChain:
         if kernels.on_cpu(planar):
             return fused_chain_plain(planar, self.cols, self.dtype)
         words = self.prepare(planar.device)._device_words[planar.device]
-        out = torch.empty_like(planar)
+        out = tracing.call("alloc", torch.empty_like, planar)
         c, hp, pitch = planar.shape[-3:]
         images = planar.shape[0] if planar.dim() == 4 else 1
         count = images if self.gray_first else images * c

@@ -22,6 +22,7 @@ import torch
 
 from .. import spec
 from ..ops import kernels, point, window
+from ..runtime import tracing
 
 RING = 2  # erosion radius 1 + blur radius 1
 
@@ -53,7 +54,7 @@ def fused_pipeline(planar: torch.Tensor) -> torch.Tensor:
     kernels.check_planar(planar, channels=3, batched=True)
     if kernels.on_cpu(planar):
         return fused_pipeline_plain(planar)
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     batch = planar.shape[0] if planar.dim() == 4 else 1
     _, hp, pitch = planar.shape[-3:]
     kernels.launch("pipeline_u8", "dip_pipeline_u8", planar.device,

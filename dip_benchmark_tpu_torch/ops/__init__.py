@@ -18,6 +18,7 @@ crops and quantizes their outputs.
 from __future__ import annotations
 
 from .. import spec
+from ..runtime import tracing
 from . import f32, point, window
 from ..models import pipeline  # after point and window, which it imports
 
@@ -87,10 +88,23 @@ def _bind(fn, args):
     return lambda planar: fn(planar, *args)
 
 
+def _traced(fn, args):
+    """``fn`` with ``args`` as the port's ``op`` span: the wrapper's
+    checks, dispatch and argument packing, around its output's allocation
+    and its launch."""
+    bound = _bind(fn, args)
+
+    def op(planar):
+        if tracing.enabled or tracing.profiler._is_profiler_enabled:
+            return tracing.call("op", bound, planar)
+        return fn(planar, *args)
+    return op
+
+
 def _wrappers(table: dict) -> dict:
     """The CUDA kernel for a tensor on the card, the plain version for a
     CPU tensor."""
-    return {col: _bind(wrapper, args)
+    return {col: _traced(wrapper, args)
             for col, (wrapper, _, args) in table.items()}
 
 

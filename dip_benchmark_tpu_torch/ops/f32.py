@@ -35,6 +35,7 @@ import torch
 
 from .. import spec
 from ..models import pipeline
+from ..runtime import tracing
 
 from . import kernels, window
 
@@ -138,7 +139,7 @@ def fused_pipeline_plain(planar: torch.Tensor) -> torch.Tensor:
 
 def _launch_point(name: str, entry: str, planar: torch.Tensor,
                   n4: int, *extra) -> torch.Tensor:
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     kernels.launch(name, entry, planar.device, planar.data_ptr(),
                    out.data_ptr(), n4, *extra)
     return out
@@ -298,7 +299,7 @@ def fused_pipeline(planar: torch.Tensor) -> torch.Tensor:
     kernels.check_planar(planar, channels=3, batched=True, dtype=F32)
     if kernels.on_cpu(planar):
         return fused_pipeline_plain(planar)
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     batch = planar.shape[0] if planar.dim() == 4 else 1
     _, hp, pitch = planar.shape[-3:]
     kernels.launch("pipeline_f32", "dip_pipeline_f32", planar.device,

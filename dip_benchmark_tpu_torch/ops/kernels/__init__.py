@@ -5,12 +5,14 @@ tensors' device pointers and PyTorch's current stream to a C entry point of
 the library, raises if the launch was refused, and only then adds one to
 the kernel's count in ``LAUNCHES``. A run shows that it went through the
 kernels by zeroing the counts (``reset_launches``) and reading them after.
+All of it is the port's ``launch`` span (``runtime/tracing.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...runtime import tracing
 from .build import KernelLibraryError, load  # noqa: F401
 
 
@@ -61,12 +63,22 @@ def reset_launches() -> None:
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` with ``args`` and the current stream of
     ``device``; count one launch of ``name`` if it started."""
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = getattr(lib, entry)(*args, stream)
-    if status != 0:
-        raise KernelLaunchError(
-            f"{name}: {lib.dip_error_string(status).decode()} "
-            f"(cudaError {status})")
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    # The span is entered by hand: off, the site costs the two flags'
+    # reads, not a call.
+    span = None
+    if tracing.enabled or tracing.profiler._is_profiler_enabled:
+        span = tracing.span("launch")
+        span.__enter__()
+    try:
+        lib = load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            status = getattr(lib, entry)(*args, stream)
+        if status != 0:
+            raise KernelLaunchError(
+                f"{name}: {lib.dip_error_string(status).decode()} "
+                f"(cudaError {status})")
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    finally:
+        if span is not None:
+            span.__exit__(None, None, None)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import spec
-
+from ..runtime import tracing
 from . import kernels
 
 
@@ -44,7 +44,7 @@ def copy(planar: torch.Tensor) -> torch.Tensor:
     kernels.check_planar(planar)
     if kernels.on_cpu(planar):
         return copy_plain(planar)
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     kernels.launch("copy_u8", "dip_copy_u8", planar.device,
                    planar.data_ptr(), out.data_ptr(), planar.numel() // 16)
     return out
@@ -54,7 +54,7 @@ def inversion(planar: torch.Tensor) -> torch.Tensor:
     kernels.check_planar(planar)
     if kernels.on_cpu(planar):
         return inversion_plain(planar)
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     kernels.launch("point_u8<Invert>", "dip_inversion_u8", planar.device,
                    planar.data_ptr(), out.data_ptr(), planar.numel() // 16)
     return out
@@ -64,7 +64,7 @@ def threshold(planar: torch.Tensor) -> torch.Tensor:
     kernels.check_planar(planar)
     if kernels.on_cpu(planar):
         return threshold_plain(planar)
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     kernels.launch("point_u8<Threshold>", "dip_threshold_u8", planar.device,
                    planar.data_ptr(), out.data_ptr(), planar.numel() // 16,
                    spec.THRESHOLD_VALUE, spec.THRESHOLD_MAX)
@@ -75,7 +75,7 @@ def grayscale(planar: torch.Tensor) -> torch.Tensor:
     kernels.check_planar(planar, channels=3)
     if kernels.on_cpu(planar):
         return grayscale_plain(planar)
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     kernels.launch("grayscale_u8", "dip_grayscale_u8", planar.device,
                    planar.data_ptr(), out.data_ptr(), planar[0].numel() // 16,
                    *spec.GRAYSCALE_WEIGHTS_INT_RGB, spec.GRAYSCALE_SHIFT)

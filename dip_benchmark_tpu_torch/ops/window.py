@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from .. import spec
-
+from ..runtime import tracing
 from . import kernels
 
 STRIP_CONV_SIZES = (3, 5)   # square masks (and N) window.cu compiles in
@@ -248,7 +248,7 @@ def blur3x3_plain(planar: torch.Tensor) -> torch.Tensor:
 
 def _launch_window(name: str, entry: str, planar: torch.Tensor,
                    *extra) -> torch.Tensor:
-    out = torch.empty_like(planar)
+    out = tracing.call("alloc", torch.empty_like, planar)
     c, hp, pitch = planar.shape
     kernels.launch(name, entry, planar.device, planar.data_ptr(),
                    out.data_ptr(), c, hp, pitch, *extra)

@@ -34,7 +34,7 @@ from . import native, oracle, oracle_f32, spec
 from .harness import Operation
 from .models import chain
 from .ops import OPS, OPS_F32, kernels, library, library_f32
-from .runtime import synchronize
+from .runtime import synchronize, tracing
 from .runtime.exec_timing import (KS, SAMPLES, ExecTime, GraphCache,
                                   chain_direct, execution_time, shapes)
 from .utils.image import (check_uint8_hwc, from_planar_padded,
@@ -174,7 +174,10 @@ class BenchmarkSession:
         return self.planar_dev if self.path == "kernel" else self.image_dev
 
     def _sync(self) -> None:
-        """Wait for the session's device: the end of every timed round."""
+        """Wait for the session's device: the end of every timed round,
+        the ``sync`` span."""
+        if tracing.enabled or tracing.profiler._is_profiler_enabled:
+            return tracing.call("sync", synchronize, self.device)
         synchronize(self.device)
 
     def _make_run(self, fn: Callable) -> Callable[[], None]:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..runtime import tracing
 
 try:  # cv2 matches the reference's JPEG decode exactly (opencv/benchmark.py:14)
     import cv2 as _cv2
@@ -173,9 +174,13 @@ def stack_planar_padded(images: np.ndarray, layout: PlanarLayout,
     """``(B, H, W, C)`` uint8 -> ``(B, C, Hp, pitch)`` uint8 CPU tensor,
     each image baked as ``to_planar_padded`` bakes it. ``pin_memory``
     allocates the stack in page-locked memory, for an asynchronous copy
-    to the card."""
-    stack = torch.empty((len(images),) + layout.shape, dtype=torch.uint8,
-                        pin_memory=pin_memory)
+    to the card, as the port's ``pin_alloc`` span."""
+    shape = (len(images),) + layout.shape
+    if pin_memory:
+        with tracing.span("pin_alloc"):
+            stack = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    else:
+        stack = torch.empty(shape, dtype=torch.uint8)
     dst = stack.numpy()
     for i, image in enumerate(images):
         dst[i] = to_planar_padded(image, layout).numpy()
