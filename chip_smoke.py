@@ -104,9 +104,10 @@ csrc`` with nvcc, then, with no fallback anywhere:
 5. drives the batch tool (``models.batch.main``, ``--backend cuda``) over
    a directory of eight 3504x2336 images and one of another shape, with
    the counts zeroed again, and requires every output to equal the
-   oracle's fused pipeline and ``pipeline_u8`` to have run; then again
-   with ``--op`` C3, every output equal to the chain's sequential oracle
-   and one ``chain_u8`` launch per shape group; then with ``--op
+   oracle's fused pipeline and one ``bake_u8`` and one ``pipeline_u8``
+   launch per shape group; then again with ``--op`` C3, every output
+   equal to the chain's sequential oracle and one ``bake_u8`` and one
+   ``chain_u8`` launch per shape group; then with ``--op
    Convolution-5x5``, which runs on the library path: every output equal
    to the oracle and no kernel launched;
 6. times each kernel against its plain version and, where one PyTorch call
@@ -117,8 +118,10 @@ csrc`` with nvcc, then, with no fallback anywhere:
    general ``ConvDense<3,3>`` and ``<5,5>``, which the matrix's rank-1
    masks no longer reach, on ``DENSE_MASKS``; then the serving table of
    the fused pipeline at B = 1, 2, 4, 8: device µs per image, end-to-end
-   ``process_batch`` ms per image, and its two host steps (layout bake,
-   crop) timed alone;
+   ``process_batch`` ms per image, the layout bake on the card
+   (``bake_u8``, device ms per image, its output equal to the host's
+   bake at each B) beside the host's NumPy bake, and the host's crop timed
+   alone; ``bake_u8``'s entry at B = 8 beside its plain version;
    [6f] the same timings for the float32 kernels, with TF32 off for the
    ``F.conv2d`` yardsticks; every yardstick's output is held to the plain
    version within 1e-6 (on the interior, for a windowed ``F.conv2d``);
@@ -191,7 +194,7 @@ csrc`` with nvcc, then, with no fallback anywhere:
    held to its plain version on three bands of 64 rows (the first, the one
    across element 2^31 of the first plane, the last) computed from the
    band and 2 rows of halo, tolerance 0, and freed before the next op;
-7. prints ``{"kernels": [...]}`` (62 entries, each with its ``dtype``),
+7. prints ``{"kernels": [...]}`` (63 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -230,6 +233,7 @@ from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
 from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32, f32,
                                          kernels, window)
 from dip_benchmark_tpu_torch.ops.kernels import build
+from dip_benchmark_tpu_torch.ops.layout import bake_stack, bake_stack_plain
 from dip_benchmark_tpu_torch.parallel.session import ShardedBenchmarkSession
 from dip_benchmark_tpu_torch.runtime import exec_timing
 from dip_benchmark_tpu_torch.session import (PIPELINE_DESCRIPTION,
@@ -1790,9 +1794,10 @@ def drive_batch_tool(indir: str, named: dict, cols=None) -> dict:
         check(not counts, f"batch tool --op {cols} launched port kernels "
                           f"{counts}; the library path launches none")
     else:
-        check(counts.get(kernel, 0) == groups,
-              f"batch tool launched {kernel} {counts.get(kernel)} times, "
-              f"want one per shape group ({groups})")
+        for name in ("bake_u8", kernel):
+            check(counts.get(name, 0) == groups,
+                  f"batch tool launched {name} {counts.get(name)} times, "
+                  f"want one per shape group ({groups})")
     what = ("pipeline" if cols is None else "--op " + cols if single
             else "--op " + ",".join(cols))
     print(f"  batch tool ({what}): rc 0, {len(named)} images in "
@@ -2741,22 +2746,35 @@ def host_ms(fn) -> float:
     return statistics.median(samples)
 
 
-def serving_table(images) -> list[dict]:
+def serving_table(images, launches: int) -> tuple[list[dict], dict]:
     """The fused pipeline at each batch size: device time per image of
     one launch on the stack, end-to-end ``process_batch`` time per image
-    (host layout bake, copy in, kernel, copy out, crop), and the two host
-    steps of it timed alone: the layout bake into pinned memory and the
-    crop of a pinned result to (B, H, W, 3)."""
+    (the copies into pinned memory and to the card, the layout bake on the
+    card, the kernel, the copy out, the crop), the card's bake
+    (``bake_u8``, device time; its output held equal to the host's bake,
+    slack and halo included) beside the host's NumPy bake of the same
+    stack (``stack_planar_padded``, the CPU backend's), and the crop of a
+    pinned result to (B, H, W, 3) timed alone. Also the ``{"kernels":
+    [...]}`` entry of ``bake_u8`` at the largest batch, beside its plain
+    version on the card and its bound (the stack read once and the planar
+    stack written once at the HBM rate); ``launches`` is its count in the
+    batch tool's runs."""
     images = np.stack(images)
     layout = make_layout(*images.shape[1:3])
     rows = []
     for b in SERVING_BATCHES:
         stack = stack_planar_padded(images[:b], layout).cuda()
         dev_ms = timed([fused_pipeline], stack)[0]
+        raw = torch.from_numpy(images[:b]).cuda()
+        check(torch.equal(bake_stack(raw, layout), stack),
+              f"bake_u8 at B={b} differs from stack_planar_padded")
+        card_bake, plain_bake = timed([
+            lambda s: bake_stack(s, layout),
+            lambda s: bake_stack_plain(s, layout)], raw)
+        del raw
         batch.process_batch(images[:b])  # warm the pinned-memory cache
         e2e = host_ms(lambda: batch.process_batch(images[:b]))
-        bake = host_ms(lambda: stack_planar_padded(images[:b], layout,
-                                                   pin_memory=True))
+        bake = host_ms(lambda: stack_planar_padded(images[:b], layout))
         pinned = stack.cpu().pin_memory()
         crop = host_ms(lambda: from_planar_padded(pinned, layout))
         bound_ms, _ = bound("Fused-Pipeline", stack)
@@ -2764,8 +2782,21 @@ def serving_table(images) -> list[dict]:
                      "bound_us_per_image": 1e3 * bound_ms / b,
                      "e2e_ms_per_image": e2e / b,
                      "bake_ms_per_image": bake / b,
+                     "card_bake_ms_per_image": card_bake / b,
                      "crop_ms_per_image": crop / b})
-    return rows
+    bake_bound_ms = 1e3 * (images[:b].size + stack.numel()) / HBM_BYTES_S
+    entry = {
+        "name": "bake_u8", "dtype": "uint8", "op": f"layout bake B={b}",
+        "route": "cuda", "source": CSRC + "layout.cu",
+        "replaces": "dip_benchmark_tpu/models/batch.py",
+        "tpu_kernel": "none (the host's to_planar_padded)",
+        "launches": launches, "max_abs_err": 0.0, "ms": card_bake,
+        "plain_ms": plain_bake, "bound_ms": bake_bound_ms,
+        "bound_by": "bytes", "library_ms": None}
+    print(f"    layout bake B={b:<14d} {'bake_u8':28s} kernel {card_bake:9.4f}"
+          f" ms | plain {plain_bake:9.4f} ms | library none | bound "
+          f"{bake_bound_ms:.4f} ms (bytes)")
+    return rows, entry
 
 
 def time_kernels(model: Model, img, errs: dict, counts: dict) -> list[dict]:
@@ -3051,12 +3082,15 @@ def main() -> int:
     entries = time_kernels(u8, img, errs["uint8"], counts["uint8"])
     entries += time_dense(img, edge_errs, counts["uint8"])
     print(f"    serving: fused pipeline on {label} stacks | {smi}")
-    serving = serving_table(variants)
+    serving, bake_entry = serving_table(variants,
+                                        batch_counts.get("bake_u8", 0))
+    entries.append(bake_entry)
     for row in serving:
         print(f"    B={row['batch']}: device {row['device_us_per_image']:8.2f}"
               f" us/image (bound {row['bound_us_per_image']:.2f}) | "
               f"process_batch end to end {row['e2e_ms_per_image']:8.2f} "
               f"ms/image (host bake {row['bake_ms_per_image']:.2f}, "
+              f"card bake {row['card_bake_ms_per_image']:.4f}, "
               f"crop {row['crop_ms_per_image']:.2f})")
     timing_header("6f", f32)
     # No TF32 in the F.conv2d yardsticks: full float32, like the kernels.
@@ -3127,7 +3161,7 @@ def main() -> int:
     big = drive_big([u8, f32], smi)
 
     entries += conv_entries
-    want = (26 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
+    want = (27 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
             + len(CONV_TIMED))
     check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
     summary = {"kernels": entries}

@@ -2,15 +2,18 @@
 over image stacks and directories, the serving path.
 
 The port of ``dip_benchmark_tpu/models/batch.py`` for one device. A stack
-of same-sized images is baked into one ``(B, 3, Hp, pitch)`` planar tensor
-on the host and copied to the card. The fused pipeline runs the whole
-stack in one ``pipeline_u8`` launch (``blockIdx.z`` is the image), and a
-chain of ops (``--op A,B,...``, ``models/chain.py``) in one ``chain_u8``
-launch, on a layout whose halo is the chain's radius (at least 2). A
-single op of the matrix runs on the library path, as the JAX package runs
-it vmapped on XLA: ``ops.library.IMAGE_OPS[op]`` once on the whole
-``(B, H, W, 3)`` stack, which is copied to the card as it is, with no
-layout bake and no crop.
+of same-sized images is copied to the card as it is, image by image
+through page-locked memory, and baked there into one ``(B, 3, Hp, pitch)``
+planar tensor by one ``bake_u8`` launch (``ops/layout.py``); the CPU
+backend bakes it in NumPy (``utils/image.stack_planar_padded``). The
+result comes back planar and is cropped on the host. The fused pipeline
+runs the whole stack in one ``pipeline_u8`` launch (``blockIdx.z`` is the
+image), and a chain of ops (``--op A,B,...``, ``models/chain.py``) in one
+``chain_u8`` launch, on a layout whose halo is the chain's radius (at
+least 2). A single op of the matrix runs on the library path, as the JAX
+package runs it vmapped on XLA: ``ops.library.IMAGE_OPS[op]`` once on the
+whole ``(B, H, W, 3)`` stack, which is copied to the card as it is, with
+no layout bake and no crop.
 
 With ``--shards N --data-shards D`` a chain, and the pipeline as the
 chain ``PIPELINE_COLS``, runs on a ``(data, space)`` mesh of D x N shards
@@ -44,6 +47,7 @@ import torch
 
 from .. import spec
 from ..ops import kernels, library
+from ..ops.layout import bake_stack
 from ..parallel.halo import Mesh, make_mesh
 from ..parallel.kernel_ops import chain_row_padding, sharded_kernel_chain
 from ..runtime import DeviceGateError, gate_backend, tracing
@@ -162,11 +166,34 @@ def _dispatch_sharded_chain(images: np.ndarray, cols: tuple[str, ...],
     return _ShardedToken(layout, results, tuple(done), sources, h, b, mesh)
 
 
+def _upload_and_bake(images: np.ndarray, layout: PlanarLayout,
+                     device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The stack's images copied one by one into a page-locked ``(B, H, W,
+    3)`` buffer, each copied on to the card as soon as it is there (the
+    host's copy of image i + 1 overlaps the card's copy of image i), then
+    baked on the card (``ops.layout.bake_stack``). Returns the page-locked
+    buffer, which has to live until its copies have run, and the planar
+    stack on the card. The host's copies are ``Tensor.copy_``, which
+    splits a copy over the intra-op threads, where a NumPy copy takes one
+    core (on the H100's host 17-24 GB/s against 4-6, and 6-8 for one
+    pageable upload of the stack; ``benchmarks/h100/bake_lab.py``)."""
+    with tracing.span("pin_alloc"):
+        staging = torch.empty(images.shape, dtype=torch.uint8,
+                              pin_memory=True)
+    with tracing.span("alloc"):
+        raw = torch.empty(images.shape, dtype=torch.uint8, device=device)
+    for i, image in enumerate(images):
+        staging[i].copy_(torch.from_numpy(np.ascontiguousarray(image)))
+        raw[i].copy_(staging[i], non_blocking=True)
+    return staging, bake_stack(raw, layout)
+
+
 def _dispatch_batch(images: np.ndarray, csv_column, device):
     """Queue one batch; returns a token for ``_fetch_batch``. On the card
-    everything after the host's layout bake is asynchronous: the copy in
-    from pinned memory, the launches and the copy out into pinned memory,
-    so the caller can fetch and encode the previous batch meanwhile.
+    everything after the host's copies into pinned memory is asynchronous:
+    the copies in, the layout bake and the other launches, and the copy out
+    into pinned memory, so the caller can fetch and encode the previous
+    batch meanwhile.
     ``csv_column`` is one of ``COLUMNS`` or a list of columns, a chain.
     ``device`` is a ``torch.device``, or a ``Mesh`` to shard a chain or
     the pipeline over."""
@@ -193,10 +220,13 @@ def _dispatch_batch(images: np.ndarray, csv_column, device):
         source = torch.from_numpy(np.ascontiguousarray(images))
         if on_card:
             source = source.pin_memory()
+        stack = source.to(device, non_blocking=True) if on_card else source
+    elif on_card:
+        with tracing.span("bake"):
+            source, stack = _upload_and_bake(images, layout, device)
     else:
         with tracing.span("bake"):
-            source = stack_planar_padded(images, layout, pin_memory=on_card)
-    stack = source.to(device, non_blocking=True) if on_card else source
+            source = stack = stack_planar_padded(images, layout)
     if isinstance(csv_column, (list, tuple)):
         outs = _batched_chain(layout, cols, b)(stack)
     elif csv_column == "Fused-Pipeline":

@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
 SOURCES = ("point.cu", "window.cu", "pipeline.cu", "f32.cu", "chain.cu",
-           "conv.cu")
+           "conv.cu", "layout.cu")
 HEADERS = ("common.cuh", "words.cuh", "taps.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -75,6 +75,7 @@ SIGNATURES = {
                                   _I, _I, _P),
     "dip_conv_tile_dense_f32": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "dip_conv_tile_sep_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "dip_bake_u8": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -12,6 +12,11 @@ TPU's 128-lane width, 8-row DMA tiles and VMEM bands are gone. Rows are
 exactly ``H + 2 * pad``; the pitch is ``W + 2 * pad`` rounded up to 16
 elements so 16-byte vector loads cover every row and plane.
 
+The bakes here run on the host, in NumPy: the session's image at set-up,
+the CPU backend's stacks, the sharded and streamed blocks. The batch tool
+on the card uploads its stacks as they are and bakes them there
+(``ops/layout.bake_stack``, the ``bake_u8`` kernel), to the same bytes.
+
 The float32 data model keeps the same geometry: ``(C, Hp, pitch)``
 float32 in [0, 1], the uint8 bake divided by 255 on the host
 (``to_planar_padded_f32``), and a crop that quantizes after cropping
@@ -27,7 +32,6 @@ import numpy as np
 import torch
 
 from .. import spec
-from ..runtime import tracing
 
 try:  # cv2 matches the reference's JPEG decode exactly (opencv/benchmark.py:14)
     import cv2 as _cv2
@@ -169,18 +173,11 @@ def to_planar_padded(image: np.ndarray, layout: PlanarLayout,
         np.ascontiguousarray(planar[:, ys[:, None], xs[None, :]]))
 
 
-def stack_planar_padded(images: np.ndarray, layout: PlanarLayout,
-                        pin_memory: bool = False) -> torch.Tensor:
+def stack_planar_padded(images: np.ndarray,
+                        layout: PlanarLayout) -> torch.Tensor:
     """``(B, H, W, C)`` uint8 -> ``(B, C, Hp, pitch)`` uint8 CPU tensor,
-    each image baked as ``to_planar_padded`` bakes it. ``pin_memory``
-    allocates the stack in page-locked memory, for an asynchronous copy
-    to the card, as the port's ``pin_alloc`` span."""
-    shape = (len(images),) + layout.shape
-    if pin_memory:
-        with tracing.span("pin_alloc"):
-            stack = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-    else:
-        stack = torch.empty(shape, dtype=torch.uint8)
+    each image baked as ``to_planar_padded`` bakes it."""
+    stack = torch.empty((len(images),) + layout.shape, dtype=torch.uint8)
     dst = stack.numpy()
     for i, image in enumerate(images):
         dst[i] = to_planar_padded(image, layout).numpy()

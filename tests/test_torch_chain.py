@@ -660,7 +660,7 @@ def test_batch_tool_chain_on_card():
     images = np.stack([random_image((37, 53), seed=s) for s in (4, 5, 6)])
     kernels.reset_launches()
     got = batch.process_batch(images, C3)
-    assert kernels.LAUNCHES == {"chain_u8": 1}
+    assert kernels.LAUNCHES == {"bake_u8": 1, "chain_u8": 1}
     seq = chain.chain_row_parts(C3)[2]
     for b in range(3):
         np.testing.assert_array_equal(got[b], seq(images[b]))

@@ -1,17 +1,25 @@
-"""The port's planar layout: round trip, baked mirror halo, pitch, and the
-carry-across of the JAX package's planar buffer (from_jax_planar)."""
+"""The port's planar layout: round trip, baked mirror halo, pitch, the
+carry-across of the JAX package's planar buffer (from_jax_planar), and the
+plain bake of a stack (ops/layout.py) against the host's; the card's bake
+is held to the host's in tests/test_torch_bake.py."""
 
 import numpy as np
 import pytest
 import torch
 
 from dip_benchmark_tpu.utils import image as jax_image
+from dip_benchmark_tpu_torch import oracle
+from dip_benchmark_tpu_torch.models import batch
+from dip_benchmark_tpu_torch.ops import kernels
+from dip_benchmark_tpu_torch.ops.layout import bake_stack, bake_stack_plain
+from dip_benchmark_tpu_torch.runtime import tracing
 from dip_benchmark_tpu_torch.utils.image import (PITCH_ALIGN, from_jax_planar,
                                                  from_planar_padded,
                                                  make_layout,
                                                  stack_planar_padded,
                                                  to_planar_padded,
                                                  to_planar_padded_f32)
+from test_torch_bake import BAKE_CASES, bake_case
 
 FIXTURES = ("small_image", "gradient_image", "fundus_crop")
 
@@ -130,3 +138,66 @@ def test_layout_refuses_images_smaller_than_the_halo():
         make_layout(2, 40)
     with pytest.raises(ValueError, match="does not fit"):
         to_planar_padded(np.zeros((5, 6, 3), np.uint8), make_layout(5, 5))
+
+
+# -- the batch tool's bake of a stack (ops/layout.py) -----------------------
+
+def test_bake_cases_cover_the_slack_and_the_sides():
+    slacks = {make_layout(h, w, pad=pad).pitch - w - 2 * pad
+              for _, h, w, pad in BAKE_CASES}
+    assert {0, 15} <= slacks
+    assert {b for b, *_ in BAKE_CASES} == {1, 2, 3}
+    assert all((h, w) == (pad + 1, pad + 1)
+               for _, h, w, pad in BAKE_CASES[::4])
+
+
+@pytest.mark.parametrize("b,h,w,pad", BAKE_CASES)
+def test_bake_stack_plain_is_the_host_bake(b, h, w, pad):
+    images, layout = bake_case(b, h, w, pad)
+    got = bake_stack_plain(torch.from_numpy(images), layout)
+    assert got.is_contiguous() and got.dtype == torch.uint8
+    assert torch.equal(got, stack_planar_padded(images, layout))
+    kernels.reset_launches()
+    assert torch.equal(bake_stack(torch.from_numpy(images), layout), got)
+    assert kernels.LAUNCHES == {}
+
+
+def _bad_stacks():
+    ok = torch.zeros((2, 9, 12, 3), dtype=torch.uint8)
+    layout = make_layout(9, 12)
+    return {
+        "dtype": (ok.to(torch.int32), layout),
+        "rank": (ok[0], layout),
+        "channels": (torch.zeros((2, 9, 12, 4), dtype=torch.uint8), layout),
+        "layout channels": (ok, make_layout(9, 12, channels=1)),
+        "contiguity": (torch.zeros((2, 9, 24, 3), dtype=torch.uint8)
+                       [:, :, ::2], layout),
+        "height": (ok, make_layout(10, 12)),
+        "width": (ok, make_layout(9, 13)),
+        "empty": (ok[:0], layout),
+        "device": (torch.zeros((2, 9, 12, 3), dtype=torch.uint8,
+                               device="meta"), layout),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_stacks()))
+def test_bake_stack_refuses(case):
+    stack, layout = _bad_stacks()[case]
+    with pytest.raises(ValueError):
+        bake_stack(stack, layout)
+
+
+def test_cpu_batch_bakes_on_the_host_and_launches_nothing():
+    images, _ = bake_case(3, 24, 40, 2)
+    kernels.reset_launches()
+    tracing.enable()
+    try:
+        got = batch.process_batch(images, device="cpu")
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+    assert kernels.LAUNCHES == {}
+    assert "card_bakes" not in snap.counters
+    assert snap.counters["images"] == 3
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], oracle.fused_pipeline(images[i]))
