@@ -104,10 +104,11 @@ csrc`` with nvcc, then, with no fallback anywhere:
 5. drives the batch tool (``models.batch.main``, ``--backend cuda``) over
    a directory of eight 3504x2336 images and one of another shape, with
    the counts zeroed again, and requires every output to equal the
-   oracle's fused pipeline and one ``bake_u8`` and one ``pipeline_u8``
-   launch per shape group; then again with ``--op`` C3, every output
-   equal to the chain's sequential oracle and one ``bake_u8`` and one
-   ``chain_u8`` launch per shape group; then with ``--op
+   oracle's fused pipeline and one ``bake_u8``, one ``pipeline_u8`` and
+   one ``crop_u8`` launch per shape group; then again with ``--op`` C3,
+   every output equal to the chain's sequential oracle and one
+   ``bake_u8``, one ``chain_u8`` and one ``crop_u8`` launch per shape
+   group; then with ``--op
    Convolution-5x5``, which runs on the library path: every output equal
    to the oracle and no kernel launched;
 6. times each kernel against its plain version and, where one PyTorch call
@@ -120,8 +121,11 @@ csrc`` with nvcc, then, with no fallback anywhere:
    the fused pipeline at B = 1, 2, 4, 8: device µs per image, end-to-end
    ``process_batch`` ms per image, the layout bake on the card
    (``bake_u8``, device ms per image, its output equal to the host's
-   bake at each B) beside the host's NumPy bake, and the host's crop timed
-   alone; ``bake_u8``'s entry at B = 8 beside its plain version;
+   bake at each B) beside the host's NumPy bake, and the crop on the card
+   (``crop_u8``, its output equal to the host's crop at each B) beside
+   its plain version on the card and the host's crop it replaced;
+   ``bake_u8``'s and ``crop_u8``'s entries at B = 8 beside their plain
+   versions;
    [6f] the same timings for the float32 kernels, with TF32 off for the
    ``F.conv2d`` yardsticks; every yardstick's output is held to the plain
    version within 1e-6 (on the interior, for a windowed ``F.conv2d``);
@@ -194,7 +198,7 @@ csrc`` with nvcc, then, with no fallback anywhere:
    held to its plain version on three bands of 64 rows (the first, the one
    across element 2^31 of the first plane, the last) computed from the
    band and 2 rows of halo, tolerance 0, and freed before the next op;
-7. prints ``{"kernels": [...]}`` (63 entries, each with its ``dtype``),
+7. prints ``{"kernels": [...]}`` (64 entries, each with its ``dtype``),
    the ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero, and without a CUDA device the
@@ -233,7 +237,8 @@ from dip_benchmark_tpu_torch.models.pipeline import (fused_pipeline,
 from dip_benchmark_tpu_torch.ops import (OPS, OPS_F32, PLAIN, PLAIN_F32, f32,
                                          kernels, window)
 from dip_benchmark_tpu_torch.ops.kernels import build
-from dip_benchmark_tpu_torch.ops.layout import bake_stack, bake_stack_plain
+from dip_benchmark_tpu_torch.ops.layout import (bake_stack, bake_stack_plain,
+                                                crop_stack, crop_stack_plain)
 from dip_benchmark_tpu_torch.parallel.session import ShardedBenchmarkSession
 from dip_benchmark_tpu_torch.runtime import exec_timing
 from dip_benchmark_tpu_torch.session import (PIPELINE_DESCRIPTION,
@@ -1794,7 +1799,7 @@ def drive_batch_tool(indir: str, named: dict, cols=None) -> dict:
         check(not counts, f"batch tool --op {cols} launched port kernels "
                           f"{counts}; the library path launches none")
     else:
-        for name in ("bake_u8", kernel):
+        for name in ("bake_u8", kernel, "crop_u8"):
             check(counts.get(name, 0) == groups,
                   f"batch tool launched {name} {counts.get(name)} times, "
                   f"want one per shape group ({groups})")
@@ -2746,19 +2751,22 @@ def host_ms(fn) -> float:
     return statistics.median(samples)
 
 
-def serving_table(images, launches: int) -> tuple[list[dict], dict]:
+def serving_table(images, launches: dict) -> tuple[list[dict], list[dict]]:
     """The fused pipeline at each batch size: device time per image of
     one launch on the stack, end-to-end ``process_batch`` time per image
     (the copies into pinned memory and to the card, the layout bake on the
-    card, the kernel, the copy out, the crop), the card's bake
+    card, the kernel, the crop on the card, the copy out), the card's bake
     (``bake_u8``, device time; its output held equal to the host's bake,
     slack and halo included) beside the host's NumPy bake of the same
-    stack (``stack_planar_padded``, the CPU backend's), and the crop of a
-    pinned result to (B, H, W, 3) timed alone. Also the ``{"kernels":
-    [...]}`` entry of ``bake_u8`` at the largest batch, beside its plain
-    version on the card and its bound (the stack read once and the planar
-    stack written once at the HBM rate); ``launches`` is its count in the
-    batch tool's runs."""
+    stack (``stack_planar_padded``, the CPU backend's), and the card's crop
+    of the pipeline's planar result (``crop_u8``, device time; its output
+    held equal to the host's crop) beside its plain version on the card
+    and the host's crop of a pinned result to (B, H, W, 3)
+    (``from_planar_padded``, which the card's crop replaced in the batch
+    tool). Also the ``{"kernels": [...]}`` entries of ``bake_u8`` and
+    ``crop_u8`` at the largest batch, beside their plain versions on the
+    card and their bounds (the bytes read once and written once at the HBM
+    rate); ``launches`` is the batch tool's counts."""
     images = np.stack(images)
     layout = make_layout(*images.shape[1:3])
     rows = []
@@ -2772,6 +2780,14 @@ def serving_table(images, launches: int) -> tuple[list[dict], dict]:
             lambda s: bake_stack(s, layout),
             lambda s: bake_stack_plain(s, layout)], raw)
         del raw
+        result = fused_pipeline(stack)
+        check(np.array_equal(crop_stack(result, layout).cpu().numpy(),
+                             from_planar_padded(result.cpu(), layout)),
+              f"crop_u8 at B={b} differs from from_planar_padded")
+        card_crop, plain_crop = timed([
+            lambda s: crop_stack(s, layout),
+            lambda s: crop_stack_plain(s, layout)], result)
+        del result
         batch.process_batch(images[:b])  # warm the pinned-memory cache
         e2e = host_ms(lambda: batch.process_batch(images[:b]))
         bake = host_ms(lambda: stack_planar_padded(images[:b], layout))
@@ -2783,20 +2799,29 @@ def serving_table(images, launches: int) -> tuple[list[dict], dict]:
                      "e2e_ms_per_image": e2e / b,
                      "bake_ms_per_image": bake / b,
                      "card_bake_ms_per_image": card_bake / b,
-                     "crop_ms_per_image": crop / b})
-    bake_bound_ms = 1e3 * (images[:b].size + stack.numel()) / HBM_BYTES_S
-    entry = {
-        "name": "bake_u8", "dtype": "uint8", "op": f"layout bake B={b}",
-        "route": "cuda", "source": CSRC + "layout.cu",
-        "replaces": "dip_benchmark_tpu/models/batch.py",
-        "tpu_kernel": "none (the host's to_planar_padded)",
-        "launches": launches, "max_abs_err": 0.0, "ms": card_bake,
-        "plain_ms": plain_bake, "bound_ms": bake_bound_ms,
-        "bound_by": "bytes", "library_ms": None}
-    print(f"    layout bake B={b:<14d} {'bake_u8':28s} kernel {card_bake:9.4f}"
-          f" ms | plain {plain_bake:9.4f} ms | library none | bound "
-          f"{bake_bound_ms:.4f} ms (bytes)")
-    return rows, entry
+                     "crop_ms_per_image": crop / b,
+                     "card_crop_ms_per_image": card_crop / b,
+                     "plain_crop_ms_per_image": plain_crop / b})
+    valid = images[:b].size
+    entries = []
+    for name, op, ms, plain_ms, moved, tpu in (
+            ("bake_u8", "layout bake", card_bake, plain_bake,
+             valid + stack.numel(), "to_planar_padded"),
+            ("crop_u8", "layout crop", card_crop, plain_crop, 2 * valid,
+             "from_planar_padded")):
+        bound_ms = 1e3 * moved / HBM_BYTES_S
+        entries.append({
+            "name": name, "dtype": "uint8", "op": f"{op} B={b}",
+            "route": "cuda", "source": CSRC + "layout.cu",
+            "replaces": "dip_benchmark_tpu/models/batch.py",
+            "tpu_kernel": f"none (the host's {tpu})",
+            "launches": launches.get(name, 0), "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None})
+        print(f"    {op} B={b:<14d} {name:28s} kernel {ms:9.4f} ms | plain "
+              f"{plain_ms:9.4f} ms | library none | bound {bound_ms:.4f} ms "
+              f"(bytes)")
+    return rows, entries
 
 
 def time_kernels(model: Model, img, errs: dict, counts: dict) -> list[dict]:
@@ -3082,16 +3107,17 @@ def main() -> int:
     entries = time_kernels(u8, img, errs["uint8"], counts["uint8"])
     entries += time_dense(img, edge_errs, counts["uint8"])
     print(f"    serving: fused pipeline on {label} stacks | {smi}")
-    serving, bake_entry = serving_table(variants,
-                                        batch_counts.get("bake_u8", 0))
-    entries.append(bake_entry)
+    serving, layout_entries = serving_table(variants, batch_counts)
+    entries += layout_entries
     for row in serving:
         print(f"    B={row['batch']}: device {row['device_us_per_image']:8.2f}"
               f" us/image (bound {row['bound_us_per_image']:.2f}) | "
               f"process_batch end to end {row['e2e_ms_per_image']:8.2f} "
               f"ms/image (host bake {row['bake_ms_per_image']:.2f}, "
               f"card bake {row['card_bake_ms_per_image']:.4f}, "
-              f"crop {row['crop_ms_per_image']:.2f})")
+              f"host crop {row['crop_ms_per_image']:.2f}, card crop "
+              f"{row['card_crop_ms_per_image']:.4f}, plain crop "
+              f"{row['plain_crop_ms_per_image']:.4f})")
     timing_header("6f", f32)
     # No TF32 in the F.conv2d yardsticks: full float32, like the kernels.
     torch.backends.cudnn.allow_tf32 = False
@@ -3161,7 +3187,7 @@ def main() -> int:
     big = drive_big([u8, f32], smi)
 
     entries += conv_entries
-    want = (27 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
+    want = (28 + len(DENSE_MASKS) + 2 * len(CHAINS) + len(MORPHOLOGY)
             + len(CONV_TIMED))
     check(len(entries) == want, f"{len(entries)} kernel entries, want {want}")
     summary = {"kernels": entries}

@@ -5,8 +5,10 @@ The port of ``dip_benchmark_tpu/models/batch.py`` for one device. A stack
 of same-sized images is copied to the card as it is, image by image
 through page-locked memory, and baked there into one ``(B, 3, Hp, pitch)``
 planar tensor by one ``bake_u8`` launch (``ops/layout.py``); the CPU
-backend bakes it in NumPy (``utils/image.stack_planar_padded``). The
-result comes back planar and is cropped on the host. The fused pipeline
+backend bakes it in NumPy (``utils/image.stack_planar_padded``). On the
+card the planar result is cropped to ``(B, H, W, 3)`` by one ``crop_u8``
+launch and only that comes back, into page-locked memory; the CPU backend
+crops on the host (``utils/image.from_planar_padded``). The fused pipeline
 runs the whole stack in one ``pipeline_u8`` launch (``blockIdx.z`` is the
 image), and a chain of ops (``--op A,B,...``, ``models/chain.py``) in one
 ``chain_u8`` launch, on a layout whose halo is the chain's radius (at
@@ -47,7 +49,7 @@ import torch
 
 from .. import spec
 from ..ops import kernels, library
-from ..ops.layout import bake_stack
+from ..ops.layout import bake_stack, crop_stack
 from ..parallel.halo import Mesh, make_mesh
 from ..parallel.kernel_ops import chain_row_padding, sharded_kernel_chain
 from ..runtime import DeviceGateError, gate_backend, tracing
@@ -70,7 +72,8 @@ class _Token(NamedTuple):
     """A dispatched batch. On the card, ``result`` is a pinned host tensor
     that is complete once ``done`` has fired; ``source`` keeps the pinned
     input alive until its copy to the card has run. ``layout`` is None
-    for a library op, whose result is the ``(B, H, W, 3)`` stack."""
+    where ``result`` is the ``(B, H, W, 3)`` stack already: a library op,
+    and every batch on the card, which crops there."""
     layout: PlanarLayout | None
     result: torch.Tensor
     done: torch.cuda.Event | None
@@ -191,9 +194,9 @@ def _upload_and_bake(images: np.ndarray, layout: PlanarLayout,
 def _dispatch_batch(images: np.ndarray, csv_column, device):
     """Queue one batch; returns a token for ``_fetch_batch``. On the card
     everything after the host's copies into pinned memory is asynchronous:
-    the copies in, the layout bake and the other launches, and the copy out
-    into pinned memory, so the caller can fetch and encode the previous
-    batch meanwhile.
+    the copies in, the layout bake, the other launches, the crop, and the
+    copy out of the ``(B, H, W, 3)`` result into pinned memory, so the
+    caller can fetch and encode the previous batch meanwhile.
     ``csv_column`` is one of ``COLUMNS`` or a list of columns, a chain.
     ``device`` is a ``torch.device``, or a ``Mesh`` to shard a chain or
     the pipeline over."""
@@ -235,16 +238,22 @@ def _dispatch_batch(images: np.ndarray, csv_column, device):
         outs = library.IMAGE_OPS[csv_column](stack)
     if not on_card:
         return _Token(layout, outs, None, source)
+    if layout is not None:
+        with tracing.span("crop"):
+            outs = crop_stack(outs, layout)
     with tracing.span("pin_alloc"):
         result = torch.empty(outs.shape, dtype=torch.uint8, pin_memory=True)
     result.copy_(outs, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
-    return _Token(layout, result, done, source)
+    return _Token(None, result, done, source)
 
 
 def _fetch_batch(token) -> np.ndarray:
-    """Wait for a dispatched batch; the uint8 (B, H, W, 3) result."""
+    """Wait for a dispatched batch; the uint8 (B, H, W, 3) result. From
+    the card that is the token's pinned result itself, no copy: an array
+    in page-locked memory from the host allocator's cache, which takes the
+    buffer back once the array is dropped."""
     if isinstance(token, _ShardedToken):
         for event in token.done:
             event.synchronize()
@@ -272,7 +281,8 @@ def process_batch(images: np.ndarray, csv_column="Fused-Pipeline",
     """Run one op of ``COLUMNS``, or given a list of columns their fused
     chain, over a uint8 ``(B, H, W, 3)`` stack on ``device`` (default: the
     card), or a chain or the pipeline sharded over ``mesh``; returns the
-    ``(B, H, W, 3)`` result. The call is the port's ``batch`` span, and
+    ``(B, H, W, 3)`` result, which from the card lives in page-locked
+    memory (``_fetch_batch``). The call is the port's ``batch`` span, and
     counts its images under ``images`` (``runtime/tracing.py``)."""
     target = mesh if mesh is not None else _device(device)
     with tracing.span("batch"):

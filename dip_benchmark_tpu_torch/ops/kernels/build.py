@@ -76,6 +76,7 @@ SIGNATURES = {
     "dip_conv_tile_dense_f32": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "dip_conv_tile_sep_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "dip_bake_u8": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "dip_crop_u8": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

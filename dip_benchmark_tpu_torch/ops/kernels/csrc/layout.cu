@@ -1,6 +1,8 @@
-// The batch tool's layout bake: a (B, H, W, 3) HWC uint8 stack on the
-// card -> the (B, 3, Hp, pitch) planar, mirror-padded stack the kernels
-// take (utils/image.py stack_planar_padded, byte for byte).
+// The batch tool's layout on the card, both ways. bake_u8: a (B, H, W, 3)
+// HWC uint8 stack -> the (B, 3, Hp, pitch) planar, mirror-padded stack the
+// kernels take (utils/image.py stack_planar_padded, byte for byte).
+// crop_u8, its inverse, below: the planar result -> the (B, H, W, 3) stack
+// (utils/image.py from_planar_padded, byte for byte).
 //
 // Replaces no TPU kernel: the JAX package bakes on the host (its
 // utils/image.py to_planar_padded, a NumPy gather). On the H100 that
@@ -238,5 +240,196 @@ DIP_API int dip_bake_u8(const void* in, void* out, int b, int h, int w,
     case 1: return launch_bake<1>(in, out, b, h, w, pad, pitch, s);
     case 2: return launch_bake<2>(in, out, b, h, w, pad, pitch, s);
     default: return launch_bake<3>(in, out, b, h, w, pad, pitch, s);
+  }
+}
+
+// The crop: the (B, 3, Hp, pitch) planar stack on the card -> a contiguous
+// (B, H, W, 3) HWC stack on the card, the valid region [pad, pad + H) x
+// [pad, pad + W) of each plane interleaved.
+//
+// Replaces no TPU kernel: the JAX package crops on the host (its
+// utils/image.py from_planar_padded). On the H100 the host's interleave of
+// a batch's planar result took two thirds of a batch of the batch tool.
+//
+// Bound: device-memory bandwidth. The kernel reads each plane's valid bytes
+// once (B*3*H*W) and writes the HWC stack once (as many).
+//
+// Design: a block owns one output row of one image (blockIdx.x the row,
+// blockIdx.z the image) over a tile of up to kCropTilePixels columns
+// (blockIdx.y the tile; one tile holds a fundus row):
+//   A. the three plane rows' valid bytes go to shared memory with aligned
+//      16-byte loads of the rows' 16-byte words (the pitch is a multiple
+//      of 16, so a row starts on a 16-byte boundary); a thread issues all
+//      its loads before it stores any, one wait for memory a row;
+//   B. each thread takes 16 pixels: a 16-byte word of each plane (two
+//      aligned shared loads and a funnel shift by the pad, its word part
+//      a template argument), interleaved by byte permutes (merge3, the
+//      inverse of split3) into 48 bytes of the output row, stored to a
+//      staging row in shared memory;
+//   C. each thread writes whole 16-byte words of the output row from the
+//      staging row. A word that the row shares with its neighbour row
+//      (3 W not a multiple of 16) or with its next tile is written byte by
+//      byte, each byte by the block that owns it, so no two blocks write
+//      one byte.
+namespace {
+
+constexpr int kCropThreads = 256;
+constexpr int kCropTilePixels = 4096;  // a multiple of 16
+
+// One byte a pixel of four pixels a plane (r: R0 R1 R2 R3, g, b) -> the
+// four pixels' bytes (x: R0 G0 B0 R1, y: G1 B1 R2 G2, z: B2 R3 G3 B3).
+__device__ __forceinline__ void merge3(uint32_t r, uint32_t g, uint32_t b,
+                                       uint32_t& x, uint32_t& y,
+                                       uint32_t& z) {
+  x = __byte_perm(__byte_perm(r, g, 0x1040), b, 0x3410);
+  y = __byte_perm(__byte_perm(r, g, 0x6205), b, 0x3250);
+  z = __byte_perm(__byte_perm(r, g, 0x0730), b, 0x7216);
+}
+
+// Shared memory of a block: three plane rows, then the staging row.
+struct CropSmem {
+  int plane_bytes;  // 16 * chunks + 16
+  int stage_bytes;  // 48 * chunks + 16
+};
+
+__host__ __device__ inline CropSmem crop_smem_for(int chunks) {
+  return {16 * chunks + 16, 48 * chunks + 16};
+}
+
+// in: (B, 3, H + 2 pad, pitch); out: (B, H, W, 3). chunks: the most
+// 16-pixel chunks a tile holds (the shared size). kQ: the word part of
+// pad mod 16, the offset at which a chunk sits in its plane's shared row.
+template <int kQ>
+__global__ void __launch_bounds__(kCropThreads)
+crop_u8(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int h,
+        int w, int pad, int pitch, int chunks) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const CropSmem size = crop_smem_for(chunks);
+  uint8_t* planes = smem;
+  uint8_t* stage = smem + 3 * size.plane_bytes;
+
+  const int y = blockIdx.x;
+  const int b = blockIdx.z;
+  const int hp = h + 2 * pad;
+  const int x0 = blockIdx.y * kCropTilePixels;
+  const int x1 = min(w, x0 + kCropTilePixels);
+
+  // A. The nv 16-byte words from word v0 of each plane's row y + pad,
+  // which hold its columns [pad + x0, pad + x1), to plane ch's shared row.
+  const int v0 = (pad + x0) >> 4;
+  const int nv = ((pad + x1 + 15) >> 4) - v0;
+  const size_t plane_words = static_cast<size_t>(hp) * pitch / 16;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(
+          in + (static_cast<size_t>(b) * 3 * hp + y + pad) *
+                   static_cast<size_t>(pitch)) + v0;
+  for (int k0 = threadIdx.x; k0 < 3 * nv;
+       k0 += kVecsPerThread * blockDim.x) {
+    uint4 v[kVecsPerThread];
+#pragma unroll
+    for (int i = 0; i < kVecsPerThread; ++i) {
+      const int k = k0 + i * blockDim.x;
+      if (k < 3 * nv) v[i] = src[(k / nv) * plane_words + k % nv];
+    }
+#pragma unroll
+    for (int i = 0; i < kVecsPerThread; ++i) {
+      const int k = k0 + i * blockDim.x;
+      if (k < 3 * nv)
+        reinterpret_cast<uint4*>(planes + (k / nv) * size.plane_bytes)
+            [k % nv] = v[i];
+    }
+  }
+  __syncthreads();
+
+  // B. 16 pixels a thread. x0 is a multiple of 16, so pixel x0 + 16 j + i
+  // sits at byte (pad & 15) + 16 j + i of its plane's shared row.
+  const int n = x1 - x0;
+  const unsigned s = 8u * (pad & 3);
+  for (int j = threadIdx.x; j < (n + 15) / 16; j += blockDim.x) {
+    uint32_t p[3][4];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const uint4* r4 =
+          reinterpret_cast<const uint4*>(planes + ch * size.plane_bytes) + j;
+      const uint4 a0 = r4[0], a1 = r4[1];
+      const uint32_t q[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[ch][i] = __funnelshift_r(q[kQ + i], q[kQ + i + 1], s);
+    }
+    uint32_t o[12];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      merge3(p[0][i], p[1][i], p[2][i], o[3 * i], o[3 * i + 1],
+             o[3 * i + 2]);
+    uint4* st = reinterpret_cast<uint4*>(stage) + 3 * j;
+    st[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    st[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    st[2] = make_uint4(o[8], o[9], o[10], o[11]);
+  }
+  __syncthreads();
+
+  // C. The tile's bytes [0, 3 n) of the output row from dst on: `head`
+  // bytes up to the first 16-byte boundary, whole words, a tail.
+  uint8_t* dst =
+      out + ((static_cast<size_t>(b) * h + y) * w + x0) * 3;
+  const int nbytes = 3 * n;
+  const int head = static_cast<int>(
+      (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15);
+  const int words = nbytes > head ? (nbytes - head) / 16 : 0;
+  const int tail = head + 16 * words;
+  if (head == 0) {
+    for (int k = threadIdx.x; k < words; k += blockDim.x)
+      reinterpret_cast<uint4*>(dst)[k] =
+          reinterpret_cast<const uint4*>(stage)[k];
+  } else {
+    const uint32_t* st32 = reinterpret_cast<const uint32_t*>(stage);
+    const unsigned sh = 8u * (head & 3);
+    for (int k = threadIdx.x; k < words; k += blockDim.x) {
+      const int e = head + 16 * k;
+      const uint32_t* q = st32 + (e >> 2);
+      reinterpret_cast<uint4*>(dst + e)[0] = make_uint4(
+          __funnelshift_r(q[0], q[1], sh), __funnelshift_r(q[1], q[2], sh),
+          __funnelshift_r(q[2], q[3], sh), __funnelshift_r(q[3], q[4], sh));
+    }
+  }
+  const int t = threadIdx.x;
+  if (t < 16) {
+    if (t < min(head, nbytes)) dst[t] = stage[t];
+  } else if (t < 32) {
+    if (tail + t - 16 < nbytes) dst[tail + t - 16] = stage[tail + t - 16];
+  }
+}
+
+template <int kQ>
+int launch_crop(const void* in, void* out, int b, int h, int w, int pad,
+                int pitch, cudaStream_t stream) {
+  const int tiles = (w + kCropTilePixels - 1) / kCropTilePixels;
+  const int chunks = (min(w, kCropTilePixels) + 15) / 16;
+  const CropSmem size = crop_smem_for(chunks);
+  const size_t bytes =
+      3 * static_cast<size_t>(size.plane_bytes) + size.stage_bytes;
+  crop_u8<kQ><<<dim3(h, tiles, b), kCropThreads, bytes, stream>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), h, w, pad,
+      pitch, chunks);
+  return dip::launch_status();
+}
+
+}  // namespace
+
+// in: (b, 3, h + 2 pad, pitch) uint8 on the card, 16-byte aligned, pitch a
+// multiple of 16 of at least w + 2 pad; out: (b, h, w, 3), any alignment.
+DIP_API int dip_crop_u8(const void* in, void* out, int b, int h, int w,
+                        int pad, int pitch, void* stream) {
+  if (b < 1 || pad < 0 || h < 1 || w < 1 || pitch % 16 ||
+      pitch < w + 2 * pad || b > 65535 ||
+      (w + kCropTilePixels - 1) / kCropTilePixels > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((pad & 15) >> 2) {
+    case 0: return launch_crop<0>(in, out, b, h, w, pad, pitch, s);
+    case 1: return launch_crop<1>(in, out, b, h, w, pad, pitch, s);
+    case 2: return launch_crop<2>(in, out, b, h, w, pad, pitch, s);
+    default: return launch_crop<3>(in, out, b, h, w, pad, pitch, s);
   }
 }

@@ -1,6 +1,7 @@
 """The batch tool's bake of a stack on the card: ``bake_u8`` (csrc/layout.cu,
-through ``ops/layout.bake_stack``) and ``process_batch`` on the card, held
-to ``utils/image.stack_planar_padded`` and the oracle at tolerance 0.
+through ``ops/layout.bake_stack``) and ``process_batch`` on the card (bake,
+op and crop), held to ``utils/image.stack_planar_padded`` and the oracle
+at tolerance 0.
 
 The tests here are card-only and skip without a CUDA device. They need
 neither JAX nor ``conftest.py``:
@@ -100,12 +101,17 @@ def test_process_batch_on_card_bakes_on_the_card(cols):
     finally:
         tracing.disable()
     if cols == "Fused-Pipeline":
-        assert kernels.LAUNCHES == {"bake_u8": 1, "pipeline_u8": 1}
+        assert kernels.LAUNCHES == {"bake_u8": 1, "pipeline_u8": 1,
+                                    "crop_u8": 1}
         want = [oracle.fused_pipeline(im) for im in images]
     else:
         assert max(2, *chain.check_chain(cols)) >= 3
-        assert kernels.LAUNCHES == {"bake_u8": 1, "chain_u8": 1}
+        assert kernels.LAUNCHES == {"bake_u8": 1, "chain_u8": 1,
+                                    "crop_u8": 1}
         want = [chain.chain_row_parts(cols)[2](im) for im in images]
     assert snap.counters["card_bakes"] == snap.counters["images"] == 3
+    assert snap.counters["card_crops"] == 3 and snap.spans["crop"][0] == 1
+    # The result is the pinned buffer the card copied into, not a copy.
+    assert torch.from_numpy(got).is_pinned()
     for i in range(3):
         np.testing.assert_array_equal(got[i], want[i])

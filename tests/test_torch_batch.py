@@ -180,9 +180,10 @@ def test_process_batch_on_card(col):
     imgs = stack((37, 53, 3), seed=8)
     kernels.reset_launches()
     got = batch.process_batch(imgs, col)
-    # The pipeline bakes the stack on the card, then runs: two launches. A
-    # single op of the matrix runs on the library path: no kernel.
-    assert sum(kernels.LAUNCHES.values()) == (2 if col == "Fused-Pipeline"
+    # The pipeline bakes the stack on the card, runs, then crops: three
+    # launches. A single op of the matrix runs on the library path: no
+    # kernel.
+    assert sum(kernels.LAUNCHES.values()) == (3 if col == "Fused-Pipeline"
                                               else 0)
     for b in range(3):
         np.testing.assert_array_equal(got[b], oracle.IMAGE_OPS[col](imgs[b]))

@@ -1,7 +1,8 @@
 """The port's planar layout: round trip, baked mirror halo, pitch, the
 carry-across of the JAX package's planar buffer (from_jax_planar), and the
-plain bake of a stack (ops/layout.py) against the host's; the card's bake
-is held to the host's in tests/test_torch_bake.py."""
+plain bake and crop of a stack (ops/layout.py) against the host's; the
+card's bake and crop are held to the host's in tests/test_torch_bake.py
+and tests/test_torch_crop.py."""
 
 import numpy as np
 import pytest
@@ -9,9 +10,10 @@ import torch
 
 from dip_benchmark_tpu.utils import image as jax_image
 from dip_benchmark_tpu_torch import oracle
-from dip_benchmark_tpu_torch.models import batch
+from dip_benchmark_tpu_torch.models import batch, chain
 from dip_benchmark_tpu_torch.ops import kernels
-from dip_benchmark_tpu_torch.ops.layout import bake_stack, bake_stack_plain
+from dip_benchmark_tpu_torch.ops.layout import (bake_stack, bake_stack_plain,
+                                                crop_stack, crop_stack_plain)
 from dip_benchmark_tpu_torch.runtime import tracing
 from dip_benchmark_tpu_torch.utils.image import (PITCH_ALIGN, from_jax_planar,
                                                  from_planar_padded,
@@ -20,6 +22,7 @@ from dip_benchmark_tpu_torch.utils.image import (PITCH_ALIGN, from_jax_planar,
                                                  to_planar_padded,
                                                  to_planar_padded_f32)
 from test_torch_bake import BAKE_CASES, bake_case
+from test_torch_crop import CHAIN8, CROP_CASES, planar_case
 
 FIXTURES = ("small_image", "gradient_image", "fundus_crop")
 
@@ -198,6 +201,87 @@ def test_cpu_batch_bakes_on_the_host_and_launches_nothing():
         tracing.disable()
     assert kernels.LAUNCHES == {}
     assert "card_bakes" not in snap.counters
+    assert "card_crops" not in snap.counters
     assert snap.counters["images"] == 3
     for i in range(3):
         np.testing.assert_array_equal(got[i], oracle.fused_pipeline(images[i]))
+
+
+# -- the batch tool's crop of a planar stack (ops/layout.py) -----------------
+
+def test_crop_cases_add_a_chain_layout_of_pad_8():
+    assert max(2, *chain.check_chain(CHAIN8)) == 8
+    assert CROP_CASES[:len(BAKE_CASES)] == BAKE_CASES
+    assert {pad for *_, pad in CROP_CASES[len(BAKE_CASES):]} == {8}
+
+
+@pytest.mark.parametrize("b,h,w,pad", CROP_CASES)
+def test_crop_stack_plain_is_the_host_crop(b, h, w, pad):
+    planar, layout = planar_case(b, h, w, pad)
+    got = crop_stack_plain(planar, layout)
+    assert got.is_contiguous() and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(),
+                                  from_planar_padded(planar, layout))
+    images, _ = bake_case(b, h, w, pad)
+    assert torch.equal(crop_stack_plain(
+        bake_stack_plain(torch.from_numpy(images), layout), layout),
+        torch.from_numpy(images))
+
+
+def test_crop_stack_on_the_cpu_is_the_plain_crop_and_counts_nothing():
+    planar, layout = planar_case(2, 37, 53, 3)
+    kernels.reset_launches()
+    tracing.enable()
+    try:
+        got = crop_stack(planar, layout)
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+    assert kernels.LAUNCHES == {}
+    assert "card_crops" not in snap.counters and "alloc" not in snap.spans
+    assert torch.equal(got, crop_stack_plain(planar, layout))
+
+
+def _bad_planar_stacks():
+    layout = make_layout(9, 12)
+    ok = torch.zeros((2,) + layout.shape, dtype=torch.uint8)
+    wide = torch.zeros((2, 3, layout.padded_height, 2 * layout.pitch),
+                       dtype=torch.uint8)
+    return {
+        "dtype": (ok.to(torch.int32), layout),
+        "rank": (ok[0], layout),
+        "planes": (torch.zeros((2, 4) + layout.shape[1:], dtype=torch.uint8),
+                   make_layout(9, 12, channels=4)),
+        "layout channels": (ok[:, :1].contiguous(),
+                            make_layout(9, 12, channels=1)),
+        "contiguity": (wide[..., ::2], layout),
+        "height": (ok, make_layout(10, 12)),
+        "pitch": (ok, make_layout(9, 30)),
+        "pad": (ok, make_layout(9, 12, pad=3)),
+        "empty": (ok[:0], layout),
+        "device": (torch.zeros((2,) + layout.shape, dtype=torch.uint8,
+                               device="meta"), layout),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_planar_stacks()))
+def test_crop_stack_refuses(case):
+    planar, layout = _bad_planar_stacks()[case]
+    with pytest.raises(ValueError):
+        crop_stack(planar, layout)
+
+
+def test_cpu_batch_of_a_pad_8_chain_crops_on_the_host():
+    images, _ = bake_case(2, 24, 40, 8)
+    kernels.reset_launches()
+    tracing.enable()
+    try:
+        got = batch.process_batch(images, list(CHAIN8), device="cpu")
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+    assert kernels.LAUNCHES == {}
+    assert "card_crops" not in snap.counters and snap.spans["crop"][0] == 1
+    seq = chain.chain_row_parts(list(CHAIN8))[2]
+    for i in range(2):
+        np.testing.assert_array_equal(got[i], seq(images[i]))

@@ -289,11 +289,12 @@ SNAP = tracing.Snapshot(
            "bake": (2, 2_000_000_000, 1_600_000_000),
            "pin_alloc": (4, 400_000_000, 400_000_000),
            "crop": (2, 200_000_000, 200_000_000)},
-    counters={"images": 16, "card_bakes": 16})
+    counters={"images": 16, "card_bakes": 16, "card_crops": 12})
 WANT = {"wrapper_us.sync": 12.0, "alloc_us.sync": 5.0, "launch_us.sync": 8.0,
         "launches_per_round.sync": 2.0, "sync_wait_us.sync": 21.0,
         "bake_ms.batch": 100.0, "pin_alloc_ms.batch": 25.0,
-        "crop_ms.batch": 12.5, "card_bake_share.batch": 100.0}
+        "crop_ms.batch": 12.5, "card_bake_share.batch": 100.0,
+        "card_crop_share.batch": 75.0}
 
 
 @pytest.mark.parametrize("metric", sorted(WANT))
