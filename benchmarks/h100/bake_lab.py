@@ -15,7 +15,7 @@
    R times each, in the order a b c d d c b a:
    a. per image: a NumPy copy into one page-locked ``(B, H, W, 3)``
       buffer, then that image's asynchronous copy to the card (what
-      ``models/batch._upload_and_bake`` does, without the bake);
+      ``models/batch._upload`` does on the card);
    b. the same with ``Tensor.copy_`` for the host's copy;
    c. one ``torch.from_numpy(images).to(device)`` from pageable memory;
    d. one ``Tensor.copy_`` of the whole stack into the page-locked buffer,

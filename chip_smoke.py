@@ -2758,7 +2758,7 @@ def serving_table(images, launches: dict) -> tuple[list[dict], list[dict]]:
     card, the kernel, the crop on the card, the copy out), the card's bake
     (``bake_u8``, device time; its output held equal to the host's bake,
     slack and halo included) beside the host's NumPy bake of the same
-    stack (``stack_planar_padded``, the CPU backend's), and the card's crop
+    stack (``stack_planar_padded``, the tests' reference), and the card's crop
     of the pipeline's planar result (``crop_u8``, device time; its output
     held equal to the host's crop) beside its plain version on the card
     and the host's crop of a pinned result to (B, H, W, 3)

@@ -1,21 +1,21 @@
 """Batch image processing: the fused pipeline, one op or a fused op chain
 over image stacks and directories, the serving path.
 
-The port of ``dip_benchmark_tpu/models/batch.py`` for one device. A stack
-of same-sized images is copied to the card as it is, image by image
-through page-locked memory, and baked there into one ``(B, 3, Hp, pitch)``
-planar tensor by one ``bake_u8`` launch (``ops/layout.py``); the CPU
-backend bakes it in NumPy (``utils/image.stack_planar_padded``). On the
-card the planar result is cropped to ``(B, H, W, 3)`` by one ``crop_u8``
-launch and only that comes back, into page-locked memory; the CPU backend
-crops on the host (``utils/image.from_planar_padded``). The fused pipeline
-runs the whole stack in one ``pipeline_u8`` launch (``blockIdx.z`` is the
-image), and a chain of ops (``--op A,B,...``, ``models/chain.py``) in one
-``chain_u8`` launch, on a layout whose halo is the chain's radius (at
-least 2). A single op of the matrix runs on the library path, as the JAX
-package runs it vmapped on XLA: ``ops.library.IMAGE_OPS[op]`` once on the
-whole ``(B, H, W, 3)`` stack, which is copied to the card as it is, with
-no layout bake and no crop.
+The port of ``dip_benchmark_tpu/models/batch.py`` for one device. Every
+stack of same-sized images takes one route, on the card and on the CPU:
+it is uploaded as it is (to the card image by image through page-locked
+memory; on the CPU the array itself), baked into one ``(B, 3, Hp,
+pitch)`` planar tensor by ``ops/layout.bake_stack`` (one ``bake_u8``
+launch on the card, its plain version on the CPU), run, and cropped to
+``(B, H, W, 3)`` by ``ops/layout.crop_stack`` (one ``crop_u8`` launch, or
+its plain version); from the card only that comes back, into page-locked
+memory. The fused pipeline runs the whole stack in one ``pipeline_u8``
+launch (``blockIdx.z`` is the image), and a chain of ops (``--op
+A,B,...``, ``models/chain.py``) in one ``chain_u8`` launch, on a layout
+whose halo is the chain's radius (at least 2). A single op of the matrix
+runs on the library path, as the JAX package runs it vmapped on XLA:
+``ops.library.IMAGE_OPS[op]`` once on the whole ``(B, H, W, 3)`` stack,
+uploaded the same way, with no layout bake and no crop.
 
 With ``--shards N --data-shards D`` a chain, and the pipeline as the
 chain ``PIPELINE_COLS``, runs on a ``(data, space)`` mesh of D x N shards
@@ -42,7 +42,7 @@ import argparse
 import functools
 import os
 import sys
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -53,9 +53,8 @@ from ..ops.layout import bake_stack, crop_stack
 from ..parallel.halo import Mesh, make_mesh
 from ..parallel.kernel_ops import chain_row_padding, sharded_kernel_chain
 from ..runtime import DeviceGateError, gate_backend, tracing
-from ..utils.image import (PlanarLayout, from_planar_padded,
-                           from_resident_planar, is_image_file, load_image,
-                           make_layout, save_image, stack_planar_padded,
+from ..utils.image import (PlanarLayout, from_resident_planar, is_image_file,
+                           load_image, make_layout, save_image,
                            to_resident_planar)
 from . import chain
 from .pipeline import fused_pipeline
@@ -69,30 +68,13 @@ PIPELINE_COLS = ("Grayscale", "Threshold", "Erosion-3x3-Square",
 
 
 class _Token(NamedTuple):
-    """A dispatched batch. On the card, ``result`` is a pinned host tensor
-    that is complete once ``done`` has fired; ``source`` keeps the pinned
-    input alive until its copy to the card has run. ``layout`` is None
-    where ``result`` is the ``(B, H, W, 3)`` stack already: a library op,
-    and every batch on the card, which crops there."""
-    layout: PlanarLayout | None
-    result: torch.Tensor
-    done: torch.cuda.Event | None
-    source: torch.Tensor
-
-
-class _ShardedToken(NamedTuple):
-    """A batch dispatched over a mesh: the resident output blocks in mesh
-    order (pinned host copies on the card, with an event a device; the
-    pinned inputs kept alive until their copies ran), the per-shard
-    layout, and what the crop needs: the image height, the batch before
-    padding and the mesh."""
-    layout: PlanarLayout
-    results: tuple
+    """A dispatched batch, on any route: the events to wait for (none on
+    the CPU), the host buffers that must live until their copies to the
+    card have run, and ``finish``, which gives the ``(B, H, W, 3)`` result
+    once the events have fired."""
     done: tuple
-    sources: tuple
-    height: int
-    batch: int
-    mesh: Mesh
+    keep: tuple
+    finish: Callable[[], np.ndarray]
 
 
 def _check_stack(images: np.ndarray) -> None:
@@ -121,8 +103,31 @@ def _sharded_chain(mesh: Mesh, cols: tuple[str, ...], height: int,
     return sharded_kernel_chain(mesh, list(cols), height, width, batch=batch)
 
 
+def _download(outs: tuple, devices) -> tuple[tuple, tuple]:
+    """Page-locked host copies of the card's ``outs``, enqueued, and an
+    event after them on the current stream of each of ``devices``."""
+    with tracing.span("pin_alloc"):
+        results = tuple(torch.empty(out.shape, dtype=out.dtype,
+                                    pin_memory=True) for out in outs)
+    for result, out in zip(results, outs):
+        result.copy_(out, non_blocking=True)
+    return results, tuple(torch.cuda.current_stream(dev).record_event()
+                          for dev in devices)
+
+
+def _crop_blocks(blocks: tuple, layout: PlanarLayout, height: int,
+                 batch: int, mesh: Mesh) -> np.ndarray:
+    """A mesh's output blocks (mesh order, on the host) -> the ``(batch,
+    height, W, 3)`` result: the rows' and the batch's padding cut off."""
+    with tracing.span("crop"):
+        valid = np.concatenate([
+            from_resident_planar(row, layout, layout.height, height)
+            for row in mesh.rows(blocks)])[:batch]
+        return np.ascontiguousarray(np.transpose(valid, (0, 2, 3, 1)))
+
+
 def _dispatch_sharded_chain(images: np.ndarray, cols: tuple[str, ...],
-                            mesh: Mesh) -> _ShardedToken:
+                            mesh: Mesh) -> _Token:
     """The chain over the mesh's ``(data, space)`` shards, each a batched
     chain launch on its resident stack. Rows are mirror-padded by the
     sharded session's rule (``kernel_ops.chain_row_padding``); the batch
@@ -154,32 +159,28 @@ def _dispatch_sharded_chain(images: np.ndarray, cols: tuple[str, ...],
         sources = tuple(src.pin_memory() for src in sources)
     outs = op(tuple(src.to(dev, non_blocking=True)
                     for src, dev in zip(sources, devices)))
-    if not on_card:
-        return _ShardedToken(layout, outs, (), sources, h, b, mesh)
-    with tracing.span("pin_alloc"):
-        results = tuple(torch.empty(out.shape, dtype=out.dtype,
-                                    pin_memory=True) for out in outs)
-    for result, out in zip(results, outs):
-        result.copy_(out, non_blocking=True)
-    done = []
-    for dev in mesh.distinct:
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(dev))
-        done.append(event)
-    return _ShardedToken(layout, results, tuple(done), sources, h, b, mesh)
+    done = ()
+    if on_card:
+        outs, done = _download(outs, mesh.distinct)
+    return _Token(done, sources,
+                  functools.partial(_crop_blocks, outs, layout, h, b, mesh))
 
 
-def _upload_and_bake(images: np.ndarray, layout: PlanarLayout,
-                     device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The stack's images copied one by one into a page-locked ``(B, H, W,
-    3)`` buffer, each copied on to the card as soon as it is there (the
-    host's copy of image i + 1 overlaps the card's copy of image i), then
-    baked on the card (``ops.layout.bake_stack``). Returns the page-locked
-    buffer, which has to live until its copies have run, and the planar
-    stack on the card. The host's copies are ``Tensor.copy_``, which
-    splits a copy over the intra-op threads, where a NumPy copy takes one
-    core (on the H100's host 17-24 GB/s against 4-6, and 6-8 for one
-    pageable upload of the stack; ``benchmarks/h100/bake_lab.py``)."""
+def _upload(images: np.ndarray,
+            device: torch.device) -> tuple[torch.Tensor, tuple]:
+    """The stack as a contiguous ``(B, H, W, 3)`` tensor on ``device``, and
+    the host buffers that must live until its copy has run. On the CPU the
+    tensor is the array itself. To the card the images are copied one by
+    one into a page-locked ``(B, H, W, 3)`` buffer, each copied on to the
+    card as soon as it is there (the host's copy of image i + 1 overlaps
+    the card's copy of image i). The host's copies are ``Tensor.copy_``,
+    which splits a copy over the intra-op threads, where a NumPy copy takes
+    one core (on the H100's host 17-24 GB/s against 4-6, and 6-8 for one
+    pageable upload of the stack; a whole-stack page-locked copy, then one
+    upload, took 12.05 ms a stack of 8 where this loop took 7.43;
+    ``benchmarks/h100/bake_lab.py``)."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.ascontiguousarray(images)), ()
     with tracing.span("pin_alloc"):
         staging = torch.empty(images.shape, dtype=torch.uint8,
                               pin_memory=True)
@@ -188,10 +189,10 @@ def _upload_and_bake(images: np.ndarray, layout: PlanarLayout,
     for i, image in enumerate(images):
         staging[i].copy_(torch.from_numpy(np.ascontiguousarray(image)))
         raw[i].copy_(staging[i], non_blocking=True)
-    return staging, bake_stack(raw, layout)
+    return raw, (staging,)
 
 
-def _dispatch_batch(images: np.ndarray, csv_column, device):
+def _dispatch_batch(images: np.ndarray, csv_column, device) -> _Token:
     """Queue one batch; returns a token for ``_fetch_batch``. On the card
     everything after the host's copies into pinned memory is asynchronous:
     the copies in, the layout bake, the other launches, the crop, and the
@@ -211,64 +212,36 @@ def _dispatch_batch(images: np.ndarray, csv_column, device):
     if isinstance(csv_column, (list, tuple)):
         cols = tuple(csv_column)
         layout = make_layout(h, w, pad=max(2, *chain.check_chain(cols)))
+        op = _batched_chain(layout, cols, b)
     elif csv_column == "Fused-Pipeline":
-        layout = make_layout(h, w)
+        layout, op = make_layout(h, w), fused_pipeline
     elif csv_column in COLUMNS:
-        layout = None
+        layout, op = None, library.IMAGE_OPS[csv_column]
     else:
         raise ValueError(f"no batch op {csv_column!r}; one of {COLUMNS} "
                          f"or a list of them")
-    on_card = device.type == "cuda"
-    if layout is None:
-        source = torch.from_numpy(np.ascontiguousarray(images))
-        if on_card:
-            source = source.pin_memory()
-        stack = source.to(device, non_blocking=True) if on_card else source
-    elif on_card:
-        with tracing.span("bake"):
-            source, stack = _upload_and_bake(images, layout, device)
-    else:
-        with tracing.span("bake"):
-            source = stack = stack_planar_padded(images, layout)
-    if isinstance(csv_column, (list, tuple)):
-        outs = _batched_chain(layout, cols, b)(stack)
-    elif csv_column == "Fused-Pipeline":
-        outs = fused_pipeline(stack)
-    else:
-        outs = library.IMAGE_OPS[csv_column](stack)
-    if not on_card:
-        return _Token(layout, outs, None, source)
+    with tracing.span("bake"):
+        stack, keep = _upload(images, device)
+        if layout is not None:
+            stack = bake_stack(stack, layout)
+    outs = op(stack)
     if layout is not None:
         with tracing.span("crop"):
             outs = crop_stack(outs, layout)
-    with tracing.span("pin_alloc"):
-        result = torch.empty(outs.shape, dtype=torch.uint8, pin_memory=True)
-    result.copy_(outs, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return _Token(None, result, done, source)
+    done = ()
+    if device.type == "cuda":
+        (outs,), done = _download((outs,), (device,))
+    return _Token(done, keep, outs.numpy)
 
 
-def _fetch_batch(token) -> np.ndarray:
+def _fetch_batch(token: _Token) -> np.ndarray:
     """Wait for a dispatched batch; the uint8 (B, H, W, 3) result. From
     the card that is the token's pinned result itself, no copy: an array
     in page-locked memory from the host allocator's cache, which takes the
     buffer back once the array is dropped."""
-    if isinstance(token, _ShardedToken):
-        for event in token.done:
-            event.synchronize()
-        layout = token.layout
-        with tracing.span("crop"):
-            valid = np.concatenate([
-                from_resident_planar(row, layout, layout.height, token.height)
-                for row in token.mesh.rows(token.results)])[:token.batch]
-            return np.ascontiguousarray(np.transpose(valid, (0, 2, 3, 1)))
-    if token.done is not None:
-        token.done.synchronize()
-    if token.layout is None:
-        return token.result.numpy()
-    with tracing.span("crop"):
-        return from_planar_padded(token.result, token.layout)
+    for event in token.done:
+        event.synchronize()
+    return token.finish()
 
 
 def _device(device) -> torch.device:

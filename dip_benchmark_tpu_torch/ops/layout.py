@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from ..runtime import tracing
-from ..utils.image import PlanarLayout, mirror_cols, mirror_rows
+from ..utils.image import (PlanarLayout, _valid_region, mirror_cols,
+                           mirror_rows)
 from . import kernels
 
 
@@ -76,9 +77,7 @@ def crop_stack_plain(planar: torch.Tensor,
                      layout: PlanarLayout) -> torch.Tensor:
     """``(B, 3, Hp, pitch)`` uint8 -> ``(B, H, W, 3)`` uint8, as
     ``from_planar_padded`` crops it."""
-    p = layout.pad
-    valid = planar[..., p:p + layout.height, p:p + layout.width]
-    return valid.permute(0, 2, 3, 1).contiguous()
+    return _valid_region(planar, layout).permute(0, 2, 3, 1).contiguous()
 
 
 def crop_stack(planar: torch.Tensor, layout: PlanarLayout) -> torch.Tensor:

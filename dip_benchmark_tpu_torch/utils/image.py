@@ -12,10 +12,11 @@ TPU's 128-lane width, 8-row DMA tiles and VMEM bands are gone. Rows are
 exactly ``H + 2 * pad``; the pitch is ``W + 2 * pad`` rounded up to 16
 elements so 16-byte vector loads cover every row and plane.
 
-The bakes here run on the host, in NumPy: the session's image at set-up,
-the CPU backend's stacks, the sharded and streamed blocks. The batch tool
-on the card uploads its stacks as they are and bakes them there
-(``ops/layout.bake_stack``, the ``bake_u8`` kernel), to the same bytes.
+The bakes here run on the host, in NumPy, one gather for every caller:
+the session's image at set-up, the sharded and streamed blocks, and the
+tests' reference stack. The batch tool uploads its stacks as they are and
+bakes them where they are (``ops/layout.bake_stack``: the ``bake_u8``
+kernel on the card, its plain version on the CPU), to the same bytes.
 
 The float32 data model keeps the same geometry: ``(C, Hp, pitch)``
 float32 in [0, 1], the uint8 bake divided by 255 on the host
@@ -154,6 +155,28 @@ def mirror_cols(layout: PlanarLayout) -> np.ndarray:
         0, layout.width - 1)
 
 
+def _mirror_gather(planar: np.ndarray, layout: PlanarLayout,
+                   row0: int = 0) -> torch.Tensor:
+    """``(..., C, H, W)`` -> the contiguous ``(..., C, Hp, pitch)`` CPU
+    tensor of ``layout`` over the rows ``[row0, row0 + layout.height)``:
+    rows by ``mirror_rows`` of the whole ``H``, every column by
+    ``mirror_cols``. Leading dims (a batch) and the dtype pass through."""
+    c, h, w = planar.shape[-3:]
+    if ((c, w) != (layout.channels, layout.width) or row0 < 0
+            or row0 + layout.height > h):
+        raise ValueError(f"planar {planar.shape} from row {row0} does not "
+                         f"fit {layout}")
+    ys, xs = mirror_rows(layout, row0, h), mirror_cols(layout)
+    return torch.from_numpy(np.ascontiguousarray(
+        planar[..., ys[:, None], xs[None, :]]))
+
+
+def _valid_region(planar, layout: PlanarLayout):
+    """The ``(..., H, W)`` view of a planar buffer's or stack's image."""
+    p = layout.pad
+    return planar[..., p:p + layout.height, p:p + layout.width]
+
+
 def to_planar_padded(image: np.ndarray, layout: PlanarLayout,
                      row0: int = 0) -> torch.Tensor:
     """HWC uint8 -> ``(C, Hp, pitch)`` uint8 CPU tensor, mirror halo baked.
@@ -162,42 +185,28 @@ def to_planar_padded(image: np.ndarray, layout: PlanarLayout,
     of ``image`` (a row block of ``models/wide.apply_streaming``), whose
     pad rows come from the whole image (``mirror_rows``); the default
     bakes the whole image."""
-    h, w, c = image.shape
-    if ((w, c) != (layout.width, layout.channels) or row0 < 0
-            or row0 + layout.height > h):
-        raise ValueError(f"image {image.shape} from row {row0} does not "
-                         f"fit {layout}")
-    planar = np.transpose(image, (2, 0, 1))
-    ys, xs = mirror_rows(layout, row0, h), mirror_cols(layout)
-    return torch.from_numpy(
-        np.ascontiguousarray(planar[:, ys[:, None], xs[None, :]]))
+    return _mirror_gather(np.transpose(image, (2, 0, 1)), layout, row0)
 
 
 def stack_planar_padded(images: np.ndarray,
                         layout: PlanarLayout) -> torch.Tensor:
     """``(B, H, W, C)`` uint8 -> ``(B, C, Hp, pitch)`` uint8 CPU tensor,
     each image baked as ``to_planar_padded`` bakes it."""
-    stack = torch.empty((len(images),) + layout.shape, dtype=torch.uint8)
-    dst = stack.numpy()
-    for i, image in enumerate(images):
-        dst[i] = to_planar_padded(image, layout).numpy()
-    return stack
+    return _mirror_gather(np.transpose(images, (0, 3, 1, 2)), layout)
 
 
 def crop_planar(planar: torch.Tensor, layout: PlanarLayout) -> np.ndarray:
     """``(C, Hp, pitch)`` on any device -> the ``(C, H, W)`` host array of
     its valid region, its dtype kept (the float32 model's native output,
     unquantised)."""
-    p = layout.pad
-    return planar[:, p:p + layout.height, p:p + layout.width].cpu().numpy()
+    return _valid_region(planar, layout).cpu().numpy()
 
 
 def from_planar_padded(planar: torch.Tensor,
                        layout: PlanarLayout) -> np.ndarray:
     """``(C, Hp, pitch)`` or ``(B, C, Hp, pitch)`` on any device -> HWC or
     ``(B, H, W, C)`` host array of its dtype, cropped."""
-    p = layout.pad
-    valid = planar[..., p:p + layout.height, p:p + layout.width]
+    valid = _valid_region(planar, layout)
     return valid.movedim(-3, -1).contiguous().cpu().numpy()
 
 
@@ -258,17 +267,16 @@ def from_jax_planar(arr: np.ndarray, jax_layout,
 
 def to_resident_planar(planar: np.ndarray, layout: PlanarLayout,
                        n: int) -> tuple[torch.Tensor, ...]:
-    """``(..., H, W)`` -> n CPU tensors ``(..., Hp, pitch)``: the resident
-    sharded layout of ``parallel/``, one block per row shard.
+    """``(..., C, H, W)`` -> n CPU tensors ``(..., C, Hp, pitch)``: the
+    resident sharded layout of ``parallel/``, one block per row shard.
 
     Shard i holds rows ``[i * h_loc, (i + 1) * h_loc)`` (``h_loc = H / n``,
     ``layout`` the per-shard layout); its block is the port's bake of those
     rows: ``pad`` rows above and below from the neighbouring shards, or by
     the spec's mirror rule past the image's edges, and every column as
     ``mirror_cols`` fills it. Each block is contiguous, so the kernels run
-    on it as they run on an unsharded planar. Leading dims (channels, a
-    batch) and the dtype pass through; n = 1 gives ``to_planar_padded``'s
-    buffer."""
+    on it as they run on an unsharded planar. Leading dims (a batch) and
+    the dtype pass through; n = 1 gives ``to_planar_padded``'s buffer."""
     h, w = planar.shape[-2:]
     if h % n:
         raise ValueError(f"{n} shards must divide height {h}")
@@ -276,10 +284,7 @@ def to_resident_planar(planar: np.ndarray, layout: PlanarLayout,
     if (layout.height, layout.width) != (h_loc, w):
         raise ValueError(f"{layout} is not the per-shard layout of {n} "
                          f"shards of {h}x{w}")
-    xs = mirror_cols(layout)
-    return tuple(torch.from_numpy(np.ascontiguousarray(planar[
-        ..., mirror_rows(layout, i * h_loc, h)[:, None], xs[None, :]]))
-        for i in range(n))
+    return tuple(_mirror_gather(planar, layout, i * h_loc) for i in range(n))
 
 
 def from_resident_planar(blocks, layout: PlanarLayout, h_loc: int,
@@ -292,9 +297,8 @@ def from_resident_planar(blocks, layout: PlanarLayout, h_loc: int,
         # h_loc is redundant with the layout; a mismatch would silently
         # return wrongly cropped rows.
         raise ValueError(f"h_loc {h_loc} != layout.height {layout.height}")
-    p = layout.pad
-    valid = np.concatenate([b[..., p:p + h_loc, p:p + layout.width]
-                            .cpu().numpy() for b in blocks], axis=-2)
+    valid = np.concatenate([_valid_region(b, layout).cpu().numpy()
+                            for b in blocks], axis=-2)
     return np.ascontiguousarray(valid[..., :height, :])
 
 

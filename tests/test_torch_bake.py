@@ -115,3 +115,38 @@ def test_process_batch_on_card_bakes_on_the_card(cols):
     assert torch.from_numpy(got).is_pinned()
     for i in range(3):
         np.testing.assert_array_equal(got[i], want[i])
+
+
+@pytest.mark.cuda
+def test_process_batch_on_card_stages_a_library_column(monkeypatch):
+    # A single op takes the pipeline's upload: the page-locked staging
+    # stack inside the bake span, no pin_memory() of the whole stack, and
+    # no bake or crop on the card.
+    card()
+    images, _ = bake_case(3, 37, 53, 2, seed=6)
+    opened, open_now = [], []
+
+    class Span:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            open_now.append(self.name)
+            opened.append("/".join(open_now))
+
+        def __exit__(self, *exc):
+            open_now.pop()
+
+    def whole_stack_pin(self, *args, **kwargs):
+        raise AssertionError("pin_memory() of the whole stack")
+
+    monkeypatch.setattr(tracing, "span", Span)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", whole_stack_pin)
+    kernels.reset_launches()
+    got = batch.process_batch(images, "Grayscale")
+    assert kernels.LAUNCHES == {}
+    assert opened == ["batch", "batch/bake", "batch/bake/pin_alloc",
+                      "batch/bake/alloc", "batch/pin_alloc"]
+    assert torch.from_numpy(got).is_pinned()
+    np.testing.assert_array_equal(
+        got, batch.process_batch(images, "Grayscale", device="cpu"))

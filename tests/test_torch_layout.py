@@ -207,6 +207,25 @@ def test_cpu_batch_bakes_on_the_host_and_launches_nothing():
         np.testing.assert_array_equal(got[i], oracle.fused_pipeline(images[i]))
 
 
+@pytest.mark.parametrize("cols", ["Fused-Pipeline", CHAIN8])
+def test_cpu_batch_goes_through_the_layout_wrappers(cols, monkeypatch):
+    # The CPU batch takes the card's route: one bake_stack and one
+    # crop_stack a batch, whose plain versions do the work.
+    images, _ = bake_case(2, 24, 40, 8)
+    calls = []
+    for name in ("bake_stack", "crop_stack"):
+        monkeypatch.setattr(batch, name, lambda planar, layout, name=name,
+                            real=getattr(batch, name): (
+            calls.append(name), real(planar, layout))[1])
+    op = cols if isinstance(cols, str) else list(cols)
+    got = batch.process_batch(images, op, device="cpu")
+    assert calls == ["bake_stack", "crop_stack"]
+    want = (oracle.fused_pipeline if isinstance(cols, str)
+            else chain.chain_row_parts(op)[2])
+    for i in range(2):
+        np.testing.assert_array_equal(got[i], want(images[i]))
+
+
 # -- the batch tool's crop of a planar stack (ops/layout.py) -----------------
 
 def test_crop_cases_add_a_chain_layout_of_pad_8():
