@@ -24,7 +24,7 @@ for every variant of either u8 chain design, ``chip_smoke.CHAINS`` C1-C4
 in the uint8 model, and for every ``chain_f32`` variant the same chains
 in the float32 model (each on a planar baked with its halo); for every
 ``pipeline_u8`` variant, stacks of ``PIPE_BATCHES`` images; for every
-variant of ``f32.cu``, the five convolution bodies of the float32 model.
+variant of ``f32.cu``, the eight window bodies of the float32 model.
 Each output is held to its plain version on the whole buffer (tolerance 0)
 and timed: the median device time of N launches from CUDA events behind a
 sleep kernel, L2-warm (the same input again) and L2-cold (a 256 MB write
@@ -68,7 +68,7 @@ from dip_benchmark_tpu_torch import spec  # noqa: E402
 from dip_benchmark_tpu_torch.models import chain  # noqa: E402
 from dip_benchmark_tpu_torch.models.pipeline import (  # noqa: E402
     fused_pipeline_plain)
-from dip_benchmark_tpu_torch.ops import f32  # noqa: E402
+from dip_benchmark_tpu_torch.ops import f32, window  # noqa: E402
 from dip_benchmark_tpu_torch.ops.kernels import build  # noqa: E402
 from dip_benchmark_tpu_torch.utils.image import (  # noqa: E402
     make_layout, stack_planar_padded, to_planar_padded, to_planar_padded_f32)
@@ -146,7 +146,13 @@ def knobs(text: str, names) -> dict:
 
 def f32_bodies() -> dict:
     """label -> (C entry, arguments after the geometry, plain version)."""
-    out = {"Blur3x3": ("dip_blur3x3_f32", (), f32.blur3x3_plain)}
+    out = {f"Min{body}": (entry, (),
+                          lambda p, m=mask: window.erosion_plain(p, m))
+           for body, mask, entry in (
+               ("Rect", spec.SQUARE_MASK_3X3, "dip_erosion_rect_f32"),
+               ("Plus", spec.CROSS_MASK_3X3, "dip_erosion_plus_f32"))}
+    out["MinSep"] = ("dip_erosion_sep_f32", (), window.erosion_sep_plain)
+    out["Blur3x3"] = ("dip_blur3x3_f32", (), f32.blur3x3_plain)
     for n, mask, shift in ((3, spec.BLUR_3X3_INT, spec.BLUR_3X3_SHIFT),
                            (5, spec.BLUR_5X5_INT, spec.BLUR_5X5_SHIFT)):
         out[f"ConvDense<{n},{n}>"] = (

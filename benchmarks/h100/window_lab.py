@@ -33,7 +33,7 @@ output against
 L2-warm and L2-cold, and the program's shared-memory reads, writes and
 min/max operations an output. The 3x3 square and cross run both on the
 kernels the make_* functions route them to (``MinRect``, ``MinPlus``,
-``MaxRect``, ``MaxPlus``, the float32 ``window_f32`` bodies; the package's
+``MaxRect``, ``MaxPlus``, the float32 ``window_f32_strip`` bodies; the package's
 library) and on ``Taps``. With ``--sass`` also the static SASS of each
 variant's ``window_taps`` kernels.
 Prints the ``nvidia-smi`` name and power limit, and last one JSON object

@@ -50,10 +50,10 @@ csrc`` with nvcc, then, with no fallback anywhere:
    that end short of a tile or span several, 2341x3501) and
    ``CHAIN_EDGE_BUFFERS``, and 12 stage lists no column name makes
    (``random_chain_stages``: rank-1 masks that clamp, shifts above 8);
-   [3h] every body of ``window_f32_strip`` (the float32 convolutions and
-   blur), random float masks among them, and the float32 ``Taps`` kernel on
-   the elements of ``MORPHOLOGY``, the same way at ``EDGE_IMAGES`` and
-   ``EDGE_BUFFERS``;
+   [3h] every body of ``window_f32_strip`` (the float32 3x3 erosions,
+   convolutions and blur), random float masks among them, and the float32
+   ``Taps`` kernel on the elements of ``MORPHOLOGY``, the same way at
+   ``EDGE_IMAGES`` and ``EDGE_BUFFERS``;
    [3i] ``chain_f32`` the way [3g] holds ``chain_u8``, at the same shapes
    as float32 planars, and on 12 random float32 stage lists (masks of
    10-bit ints of either sign over 2^10, separated pairs, min and point
@@ -1651,12 +1651,19 @@ def compare_pipeline_edges(rng) -> float:
 
 def f32_edge_bodies(rng) -> list:
     """(label, kernel name, op on a float32 planar tensor, its plain
-    version) for every body of window_f32_strip: the matrix's masks and
-    random ones (ints of up to 10 bits over 2^10, so that most products
-    round), ``ConvSep`` with random row and column masks; and the float32
-    ``Taps`` kernel on the elements of ``MORPHOLOGY``."""
-    out = [("Blur3x3", "window_f32<Blur3x3>", f32.gaussian_blur_3x3,
-            f32.blur3x3_plain)]
+    version) for every body of window_f32_strip: the 3x3 erosions by the
+    cross and the square and the separated one, the blur, the matrix's
+    masks and random ones (ints of up to 10 bits over 2^10, so that most
+    products round), ``ConvSep`` with random row and column masks; and the
+    float32 ``Taps`` kernel on the elements of ``MORPHOLOGY``."""
+    out = [(label, name, lambda p, m=mask: f32.erosion(p, m),
+            lambda p, m=mask: window.erosion_plain(p, m))
+           for label, (mask, name, _) in zip(("cross", "square"),
+                                             f32.EROSION_KERNELS)]
+    out += [("separated", "window_f32<MinSep>", f32.erosion_separated,
+             window.erosion_sep_plain),
+            ("Blur3x3", "window_f32<Blur3x3>", f32.gaussian_blur_3x3,
+             f32.blur3x3_plain)]
     for label, _, _, mask, name, *_ in MORPHOLOGY:
         if name.startswith("window_f32<Taps"):
             taps = window.mask_to_taps(mask)
@@ -3018,8 +3025,9 @@ def main() -> int:
           "strip edges, one image and B=2: kernel against plain version, "
           "tolerance 0")
     chain_edge_errs = compare_chain_edges(rng)
-    print("[3h] window_f32_strip bodies at word and strip edges, random "
-          "masks: kernel against plain version, tolerance 0")
+    print("[3h] window_f32_strip bodies (3x3 erosions, convolutions, blur) "
+          "at word and strip edges, random masks: kernel against plain "
+          "version, tolerance 0")
     f32_edge_errs = compare_f32_window_edges(rng)
     print("[3i] chain_f32 at the smallest image of each chain, tile and "
           "strip edges, one image and B=2, random float32 stage lists: "

@@ -7,14 +7,13 @@
 //   point_f32<Invert>          <- _inversion_kernel via point.py _elementwise
 //   point_f32<Threshold>       <- _threshold_kernel via point.py _elementwise
 //   grayscale_f32              <- _grayscale
-//   window_f32<Body>           <- window.py _windowed_call (dtype=f32)
+//   window_f32_strip<Body>     <- window.py _windowed_call (dtype=f32)
 //     MinRect, MinPlus         <- _make_erosion (body_rect, body_plus)
 //     MinSep                   <- _make_erosion_sep
-//   window_taps<F32Min>        <- _make_erosion (body_generic), taps.cuh
-//   window_f32_strip<Body>     <- window.py _windowed_call (dtype=f32)
 //     ConvDense<KH, KW>        <- _make_conv
 //     ConvSep<N>               <- _make_conv_sep
 //     Blur3x3                  <- _make_blur
+//   window_taps<F32Min>        <- _make_erosion (body_generic), taps.cuh
 //   pipeline_f32               <- _make_pipeline (single image and batch=B)
 //
 // Bound: device-memory bandwidth. Each op reads and writes the whole padded
@@ -34,24 +33,26 @@
 //
 // Design: point_f32 and grayscale_f32 move one float4 (16 bytes) a thread
 // over the whole buffer, halo included, since point ops commute with the
-// mirror. window_f32, for the 3x3 min bodies (MinRect, MinPlus, MinSep),
-// is the first skeleton of window_u8: one thread per output element in the
-// padded coordinates of the input and one load a tap, 0.0f in the outer
-// ring of HY rows and HX columns, so every element of the output is
-// written. Any other structuring element runs the program of taps.cuh
-// (horizontal run tables, then a vertical pass, over a tile of floats in
-// shared memory; launches counted as window_f32<Taps<Min>>); fminf over
-// values in [0, 1] is exact in any order. window_f32_strip, for the
-// convolutions and the blur,
-// replaced it there (it took 113-160 us at 3504x2336, one load a tap and,
-// for ConvSep, the N horizontal sums of every row again for every output):
-// a thread owns one float4 of a row and walks a strip of rows, loading each
-// input row once, 16 bytes a lane, a few rows ahead, the HX floats on each
-// side from the neighbouring lanes by shuffle; ConvSep keeps a ring of
-// per-row partials (2N operations an output instead of 2N^2), ConvDense and
-// Blur3x3, vertical first, a ring of raw rows. The bodies keep the JAX
-// order of every sum, so no rank-1 shortcut applies to ConvDense: that
-// would change the float result. benchmarks/h100/chain_lab.py times the
+// mirror. Every 3x3 and 5x5 window body (the convolutions, the blur and the
+// 3x3 min bodies) runs on window_f32_strip: a thread owns one float4 of a
+// row and walks a strip of rows, loading each input row once, 16 bytes a
+// lane, a few rows ahead, the HX floats on each side from the neighbouring
+// lanes by shuffle, 0.0f in the outer ring of HY rows and HX columns, so
+// every element of the output is written. Each op streams the buffer once,
+// so its time is set by the loads it issues and keeps in flight: the first
+// skeleton, one thread an output with a 4-byte load a tap, issued nine loads
+// an output of a 3x3 window where the strip issues a quarter of one and
+// loads no row twice. A body keeps a register ring of the last rows: raw
+// rows where every tap has its own weight (ConvDense, Blur3x3 vertical
+// first, MinPlus), per-row partials where a row pass comes first (ConvSep,
+// 2N operations an output instead of 2N^2; MinRect and MinSep, the
+// horizontal 3-min). The bodies keep the JAX order of every sum, so no
+// rank-1 shortcut applies to ConvDense: that would change the float result;
+// fminf over values in [0, 1] is exact in any order, so the square erosion
+// and the separated one are the same function and share a body. Any other
+// structuring element runs the program of taps.cuh (horizontal run tables,
+// then a vertical pass, over a tile of floats in shared memory; launches
+// counted as window_f32<Taps<Min>>). benchmarks/h100/chain_lab.py times the
 // strip settings and counts the SASS an output. pipeline_f32 keeps
 // pipeline_u8's shared-memory tile: after the threshold every value is 0 or
 // 1, so the 3x3 min is an AND of bytes and the 1-2-1 blur is s / 16 with s
@@ -119,81 +120,7 @@ __global__ void grayscale_f32(const float4* __restrict__ in,
   out[i + 2 * plane4] = y;
 }
 
-struct Plane {
-  const float* __restrict__ p;
-  int pitch;
-  __device__ __forceinline__ float at(int y, int x) const {
-    return p[static_cast<size_t>(y) * pitch + x];
-  }
-};
-
-struct MinRect {  // 3x3 square erosion; min is exact in any order
-  static constexpr int HY = 1, HX = 1;
-  __device__ float operator()(const Plane& in, int y, int x) const {
-    float m = in.at(y, x);
-#pragma unroll
-    for (int dy = -1; dy <= 1; ++dy)
-#pragma unroll
-      for (int dx = -1; dx <= 1; ++dx) m = fminf(m, in.at(y + dy, x + dx));
-    return m;
-  }
-};
-
-struct MinPlus {  // 3x3 cross erosion
-  static constexpr int HY = 1, HX = 1;
-  __device__ float operator()(const Plane& in, int y, int x) const {
-    float m = fminf(in.at(y - 1, x), in.at(y + 1, x));
-    m = fminf(m, fminf(in.at(y, x - 1), in.at(y, x + 1)));
-    return fminf(m, in.at(y, x));
-  }
-};
-
-struct MinSep {  // 3x1 column min, then 1x3 min over the column mins
-  static constexpr int HY = 1, HX = 1;
-  __device__ float operator()(const Plane& in, int y, int x) const {
-    float m = 0.0f;
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      const float col = fminf(fminf(in.at(y - 1, x + dx), in.at(y, x + dx)),
-                              in.at(y + 1, x + dx));
-      m = dx == -1 ? col : fminf(m, col);
-    }
-    return m;
-  }
-};
-
-// in and out are (C, Hp, pitch); the grid is (pitch / 32, Hp / 8, C), in
-// runs of at most 65,535 row blocks from row row0 (dip::launch_row_runs).
-template <class Body>
-__global__ void window_f32(const float* __restrict__ in,
-                           float* __restrict__ out, int hp, int pitch,
-                           int row0, const Body body) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = row0 + blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= pitch || y >= hp) return;
-  const size_t plane = static_cast<size_t>(blockIdx.z) * hp * pitch;
-  const Plane src{in + plane, pitch};
-  constexpr int hy = Body::HY, hx = Body::HX;
-  float v = 0.0f;
-  if (y >= hy && y < hp - hy && x >= hx && x < pitch - hx)
-    v = body(src, y, x);
-  out[plane + static_cast<size_t>(y) * pitch + x] = v;
-}
-
-template <class Body>
-int launch_window(const void* in, void* out, int channels, int hp, int pitch,
-                  const Body& body, void* stream) {
-  const dim3 block(32, 8);
-  const unsigned int gx = (pitch + block.x - 1) / block.x;
-  return dip::launch_row_runs(hp, block.y, [&](unsigned int gy, int row0) {
-    window_f32<Body><<<dim3(gx, gy, channels), block, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(in), static_cast<float*>(out), hp, pitch,
-        row0, body);
-  });
-}
-
-// -- window_f32_strip: the convolution bodies ---------------------------------
+// -- window_f32_strip: every window body --------------------------------------
 //
 // A thread owns kF32Vecs float4 of a row and walks a strip of kF32StripRows
 // output rows: each input row is loaded once per strip, 16 bytes a lane,
@@ -290,10 +217,8 @@ struct ConvSep {
   }
 };
 
-// 0.25 / 0.5 / 0.25 compiled in, the ring of ConvDense<3, 3>: a vertical
-// pass per column over the three raw rows, then a horizontal pass, each
-// (q * a + h * b) + q * c, as _make_blur sums.
-struct Blur3x3 {
+// The ring of a 3x3 body that reads its taps from the raw rows.
+struct RawRows3 {
   static constexpr int HY = 1, HX = 1;
   struct Row {
     float f[kSpan + 2];
@@ -304,6 +229,12 @@ struct Blur3x3 {
     for (int c = 0; c < kSpan + 2; ++c) r.f[c] = x[c];
     return r;
   }
+};
+
+// 0.25 / 0.5 / 0.25 compiled in, the ring of ConvDense<3, 3>: a vertical
+// pass per column over the three raw rows, then a horizontal pass, each
+// (q * a + h * b) + q * c, as _make_blur sums.
+struct Blur3x3 : RawRows3 {
   __device__ __forceinline__ void out(const Row (&ring)[3],
                                       float (&o)[kSpan]) const {
     const float q = 0.25f, h = 0.5f;
@@ -315,6 +246,47 @@ struct Blur3x3 {
 #pragma unroll
     for (int i = 0; i < kSpan; ++i)
       o[i] = add(add(mul(q, col[i]), mul(h, col[i + 1])), mul(q, col[i + 2]));
+  }
+};
+
+// The 3x3 square erosion, as ConvSep<3> with fminf for the sums: the
+// ring holds each input row's horizontal 3-min, made once, and an output
+// is the min of three ring entries. fminf over values in [0, 1] is exact
+// in any order, so this is also the 3x1 then 1x3 min of _make_erosion_sep.
+struct MinRect {
+  static constexpr int HY = 1, HX = 1;
+  struct Row {
+    float m[kSpan];
+  };
+  __device__ __forceinline__ Row row(const float (&x)[kSpan + 2]) const {
+    Row r;
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i)
+      r.m[i] = fminf(fminf(x[i], x[i + 1]), x[i + 2]);
+    return r;
+  }
+  __device__ __forceinline__ void out(const Row (&ring)[3],
+                                      float (&o)[kSpan]) const {
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i)
+      o[i] = fminf(fminf(ring[0].m[i], ring[1].m[i]), ring[2].m[i]);
+  }
+};
+
+// The same body under its own name, so that the device trace tells the
+// separated erosion's launches from the square one's.
+struct MinSep : MinRect {};
+
+// The 3x3 cross erosion, on raw rows as Blur3x3: the centre row's three
+// taps and the centre tap of the rows above and below.
+struct MinPlus : RawRows3 {
+  __device__ __forceinline__ void out(const Row (&ring)[3],
+                                      float (&o)[kSpan]) const {
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i)
+      o[i] = fminf(fminf(fminf(ring[1].f[i], ring[1].f[i + 1]),
+                         ring[1].f[i + 2]),
+                   fminf(ring[0].f[i + 1], ring[2].f[i + 1]));
   }
 };
 
@@ -632,17 +604,17 @@ DIP_API int dip_grayscale_f32(const void* in, void* out, size_t plane4,
 
 DIP_API int dip_erosion_rect_f32(const void* in, void* out, int channels,
                                  int hp, int pitch, void* stream) {
-  return launch_window(in, out, channels, hp, pitch, MinRect{}, stream);
+  return launch_strip(in, out, channels, hp, pitch, MinRect{}, stream);
 }
 
 DIP_API int dip_erosion_plus_f32(const void* in, void* out, int channels,
                                  int hp, int pitch, void* stream) {
-  return launch_window(in, out, channels, hp, pitch, MinPlus{}, stream);
+  return launch_strip(in, out, channels, hp, pitch, MinPlus{}, stream);
 }
 
 DIP_API int dip_erosion_sep_f32(const void* in, void* out, int channels,
                                 int hp, int pitch, void* stream) {
-  return launch_window(in, out, channels, hp, pitch, MinSep{}, stream);
+  return launch_strip(in, out, channels, hp, pitch, MinSep{}, stream);
 }
 
 DIP_API int dip_blur3x3_f32(const void* in, void* out, int channels, int hp,

@@ -351,23 +351,42 @@ EDGES = [f"{h}x{w}" for h, w in ((3, 3), (3, 12), (5, 28), (64, 124),
     "raw (3, 3, 16)", "raw (1, 70, 4112)"]
 
 
+def edge_planar(edge: str, rng) -> torch.Tensor:
+    """The float32 planar of an ``HxW`` random image, or a ``raw (C, Hp,
+    pitch)`` buffer of random floats in [0, 1)."""
+    if edge.startswith("raw"):
+        shape = tuple(int(s) for s in edge[5:-1].split(","))
+        return torch.from_numpy(rng.random(shape, dtype=np.float32))
+    h, w = (int(s) for s in edge.split("x"))
+    return to_planar_padded_f32(rng.integers(0, 256, (h, w, 3), np.uint8),
+                                make_layout(h, w))
+
+
+@pytest.mark.parametrize("edge", ["3x3", "5x28", "37x53", "64x124",
+                                  "raw (3, 3, 16)", "raw (1, 70, 4112)"])
+def test_square_and_separated_erosions_are_one_function(edge):
+    # One body of f32.cu serves both the square erosion and the separated
+    # one: the min over the 3x3 square is the same in either order, bit
+    # for bit on the whole float32 buffer, zero ring included.
+    planar = edge_planar(edge, np.random.default_rng(11))
+    square = f32.erosion(planar, spec.SQUARE_MASK_3X3)
+    assert torch.equal(square, f32.erosion_separated(planar))
+    ring = torch.ones_like(square, dtype=torch.bool)
+    ring[:, 1:-1, 1:-1] = False
+    assert not bool(square[ring].any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("edge", EDGES)
 def test_f32_strip_bodies_match_plain_on_card_at_edges(edge):
-    # chip_smoke.py phase 3h: window_f32_strip's bodies with random float
-    # masks, whole buffer, tolerance 0.
+    # chip_smoke.py phase 3h: window_f32_strip's bodies (the 3x3 erosions,
+    # the convolutions with random float masks, the blur), whole buffer,
+    # tolerance 0.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     import chip_smoke
     rng = np.random.default_rng(EDGES.index(edge))
-    if edge.startswith("raw"):
-        shape = tuple(int(s) for s in edge[5:-1].split(","))
-        planar = torch.from_numpy(rng.random(shape, dtype=np.float32))
-    else:
-        h, w = (int(s) for s in edge.split("x"))
-        planar = to_planar_padded_f32(
-            rng.integers(0, 256, (h, w, 3), np.uint8), make_layout(h, w))
-    planar = planar.cuda()
+    planar = edge_planar(edge, rng).cuda()
     for what, name, fn, plain in chip_smoke.f32_edge_bodies(rng):
         got = fn(planar)
         torch.cuda.synchronize()
