@@ -23,7 +23,15 @@
       host's copy with the card's).
 3. ``process_batch`` of the stack through the fused pipeline, host clock,
    median of R calls, ms an image; and the host's NumPy bake of the same
-   stack (``stack_planar_padded``), ms an image.
+   stack (``stack_planar_padded``), ms an image. Then the same with the
+   chunk floor (``models/batch.CHUNK_BYTES``, patched in this process
+   only) at 1, 2, 4 and 8 images' bytes, so a chunk is that many images,
+   R calls each in the order 1 2 4 8 8 4 2 1; beside each, from the port's
+   spans over R more calls, the host's time a chunk outside the staging
+   copies (the ``batch`` span less the ``bake`` span's self time, the
+   ``pin_alloc`` span and the ``fetch`` wait: the launches, allocations,
+   events and copy enqueues) and the ``launch`` span's share of it, and
+   the ``fetch`` wait an image.
 4. With ``--variants NAME,...`` (names of ``VARIANTS``; '' skips): copies
    of ``csrc/layout.cu`` with other tuning constants (``kBakeThreads``,
    ``kTileWords``) or cache hints, each built into a library of its own
@@ -55,6 +63,7 @@ import chip_smoke  # noqa: E402
 from dip_benchmark_tpu_torch.models import batch  # noqa: E402
 from dip_benchmark_tpu_torch.ops.layout import (  # noqa: E402
     bake_stack, bake_stack_plain)
+from dip_benchmark_tpu_torch.runtime import tracing  # noqa: E402
 from dip_benchmark_tpu_torch.utils.image import (  # noqa: E402
     make_layout, stack_planar_padded)
 
@@ -116,6 +125,67 @@ def host_ms(fn, repeats: int) -> list[float]:
         fn()
         torch.cuda.synchronize()
         out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def chunk_spans(images: np.ndarray, repeats: int) -> dict:
+    """µs a chunk of the host's work outside the staging copies, of it the
+    launches', and the fetch wait in ms an image, from the port's spans
+    over ``repeats`` calls of ``process_batch``."""
+    tracing.enable()
+    try:
+        for _ in range(repeats):
+            batch.process_batch(images)
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+    spans, chunks = snap.spans, snap.counters["batch_chunks"]
+    got = {name: spans.get(name, (0, 0, 0)) for name in (
+        "batch", "bake", "pin_alloc", "fetch", "launch")}
+    outside = (got["batch"][1] - got["bake"][2] - got["pin_alloc"][1]
+               - got["fetch"][1])
+    return {"chunks_per_batch": chunks / repeats,
+            "host_us_per_chunk": outside / chunks / 1e3,
+            "launch_us_per_chunk": got["launch"][1] / chunks / 1e3,
+            "fetch_ms_per_image": got["fetch"][1] / (repeats * len(images))
+            / 1e6}
+
+
+def chunk_sweep(images: np.ndarray, repeats: int) -> dict:
+    """``process_batch`` ms an image with 1, 2, 4 and 8 images a chunk, in
+    turns; the floor is patched here, never in the package."""
+    default = batch.CHUNK_BYTES
+    per_chunk = (1, 2, 4, 8)
+    samples = {per: [] for per in per_chunk}
+    try:
+        for per in per_chunk + per_chunk[::-1]:
+            batch.CHUNK_BYTES = per * images[0].nbytes
+            chip_smoke.check(len(batch.chunks(images.shape))
+                             == -(-len(images) // per),
+                             f"a floor of {per} images' bytes")
+            batch.process_batch(images)
+            samples[per] += host_ms(lambda: batch.process_batch(images),
+                                    max(1, repeats // 2))
+        out = {}
+        for per, ms in samples.items():
+            batch.CHUNK_BYTES = per * images[0].nbytes
+            med = statistics.median(ms)
+            out[per] = {"ms_per_image": med / len(images),
+                        "ms_min": min(ms), "ms_max": max(ms),
+                        "images_per_s": len(images) * 1e3 / med,
+                        **chunk_spans(images, repeats)}
+            row = out[per]
+            print(f"process_batch, {per} image(s) a chunk: "
+                  f"{row['ms_per_image']:.3f} ms an image "
+                  f"({row['images_per_s']:.2f} images/s; stack "
+                  f"{min(ms):.2f}-{max(ms):.2f} ms, {len(ms)} runs) | "
+                  f"{row['chunks_per_batch']:g} chunks, host "
+                  f"{row['host_us_per_chunk']:.1f} us a chunk outside the "
+                  f"staging (launch spans {row['launch_us_per_chunk']:.1f}"
+                  f"), fetch wait {row['fetch_ms_per_image']:.3f} ms an "
+                  f"image")
+    finally:
+        batch.CHUNK_BYTES = default
     return out
 
 
@@ -233,6 +303,7 @@ def main(argv=None) -> int:
           f"{host_bake_ms / BATCH:.2f} ms an image")
     result.update(e2e_ms_per_image=e2e / BATCH,
                   host_bake_ms_per_image=host_bake_ms / BATCH)
+    result["chunks"] = chunk_sweep(images, args.repeats)
 
     # 4. Build variants, beside a copy of the same traffic.
     names = [n for n in args.variants.split(",") if n]

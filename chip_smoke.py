@@ -105,10 +105,10 @@ csrc`` with nvcc, then, with no fallback anywhere:
    a directory of eight 3504x2336 images and one of another shape, with
    the counts zeroed again, and requires every output to equal the
    oracle's fused pipeline and one ``bake_u8``, one ``pipeline_u8`` and
-   one ``crop_u8`` launch per shape group; then again with ``--op`` C3,
-   every output equal to the chain's sequential oracle and one
-   ``bake_u8``, one ``chain_u8`` and one ``crop_u8`` launch per shape
-   group; then with ``--op
+   one ``crop_u8`` launch per chunk (``models.batch.chunks``) of each
+   shape group's batch; then again with ``--op`` C3, every output equal
+   to the chain's sequential oracle and one ``bake_u8``, one ``chain_u8``
+   and one ``crop_u8`` launch per chunk; then with ``--op
    Convolution-5x5``, which runs on the library path: every output equal
    to the oracle and no kernel launched;
 6. times each kernel against its plain version and, where one PyTorch call
@@ -208,6 +208,7 @@ build log and a summary go to ``build/chip_smoke/`` in the checkout.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import importlib.util
@@ -1801,15 +1802,20 @@ def drive_batch_tool(indir: str, named: dict, cols=None) -> dict:
         check(np.array_equal(load_image(os.path.join(outdir, name)),
                              expect(img)),
               f"batch tool: {name} differs from the oracle")
-    groups = len({img.shape for img in named.values()})
     if kernel is None:
         check(not counts, f"batch tool --op {cols} launched port kernels "
                           f"{counts}; the library path launches none")
     else:
+        # One launch of each kernel a chunk (models/batch.chunks) of each
+        # batch of 8 of each shape group.
+        per_shape = collections.Counter(img.shape for img in named.values())
+        chunks = sum(len(batch.chunks((min(8, n - i),) + shape))
+                     for shape, n in per_shape.items()
+                     for i in range(0, n, 8))
         for name in ("bake_u8", kernel, "crop_u8"):
-            check(counts.get(name, 0) == groups,
+            check(counts.get(name, 0) == chunks,
                   f"batch tool launched {name} {counts.get(name)} times, "
-                  f"want one per shape group ({groups})")
+                  f"want one per chunk of each shape group ({chunks})")
     what = ("pipeline" if cols is None else "--op " + cols if single
             else "--op " + ",".join(cols))
     print(f"  batch tool ({what}): rc 0, {len(named)} images in "

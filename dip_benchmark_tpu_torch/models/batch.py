@@ -4,18 +4,22 @@ over image stacks and directories, the serving path.
 The port of ``dip_benchmark_tpu/models/batch.py`` for one device. Every
 stack of same-sized images takes one route, on the card and on the CPU:
 it is uploaded as it is (to the card image by image through page-locked
-memory; on the CPU the array itself), baked into one ``(B, 3, Hp,
-pitch)`` planar tensor by ``ops/layout.bake_stack`` (one ``bake_u8``
-launch on the card, its plain version on the CPU), run, and cropped to
-``(B, H, W, 3)`` by ``ops/layout.crop_stack`` (one ``crop_u8`` launch, or
-its plain version); from the card only that comes back, into page-locked
-memory. The fused pipeline runs the whole stack in one ``pipeline_u8``
-launch (``blockIdx.z`` is the image), and a chain of ops (``--op
-A,B,...``, ``models/chain.py``) in one ``chain_u8`` launch, on a layout
-whose halo is the chain's radius (at least 2). A single op of the matrix
-runs on the library path, as the JAX package runs it vmapped on XLA:
-``ops.library.IMAGE_OPS[op]`` once on the whole ``(B, H, W, 3)`` stack,
-uploaded the same way, with no layout bake and no crop.
+memory; on the CPU the array itself), baked into a ``(b, 3, Hp, pitch)``
+planar tensor by ``ops/layout.bake_stack`` (one ``bake_u8`` launch on the
+card, its plain version on the CPU), run, and cropped to ``(b, H, W, 3)``
+by ``ops/layout.crop_stack`` (one ``crop_u8`` launch, or its plain
+version); from the card only that comes back, into page-locked memory. On
+the card a large stack runs in chunks of whole images (``chunks``: at
+least ``CHUNK_BYTES`` a chunk), each chunk's copy back on a copy stream
+of its own while the host stages the next chunk; a stack under the floor
+is one chunk, as is every stack on the CPU. The fused pipeline runs a
+chunk in one ``pipeline_u8`` launch (``blockIdx.z`` is the image), and a
+chain of ops (``--op A,B,...``, ``models/chain.py``) in one ``chain_u8``
+launch, on a layout whose halo is the chain's radius (at least 2). A
+single op of the matrix runs on the library path, as the JAX package runs
+it vmapped on XLA: ``ops.library.IMAGE_OPS[op]`` once on each chunk's
+``(b, H, W, 3)`` stack, uploaded the same way, with no layout bake and no
+crop.
 
 With ``--shards N --data-shards D`` a chain, and the pipeline as the
 chain ``PIPELINE_COLS``, runs on a ``(data, space)`` mesh of D x N shards
@@ -65,13 +69,21 @@ COLUMNS = tuple(c for c in spec.CSV_COLUMNS
 # The fused pipeline as a chain: what a mesh runs for it.
 PIPELINE_COLS = ("Grayscale", "Threshold", "Erosion-3x3-Square",
                  "Gaussian-Blur-3x3")
+# The least bytes of a chunk of a stack on the card (``chunks``): two
+# 3504x2336 images (49.1 MB), 0.9 ms of PCIe each way. On the H100's host a
+# chunk's launches and copy enqueues take 0.25-0.3 ms of the host's time
+# (slowed by the staging copy before them), so against 16 MiB (one such
+# image a chunk) two a chunk were faster in 5 of 6 in-turn comparisons
+# (+3.5 % median), and either beat one chunk a stack by 10-14 % (stacks of
+# 8 through the fused pipeline; ``benchmarks/h100/bake_lab.py``).
+CHUNK_BYTES = 32 << 20
 
 
 class _Token(NamedTuple):
     """A dispatched batch, on any route: the events to wait for (none on
-    the CPU), the host buffers that must live until their copies to the
-    card have run, and ``finish``, which gives the ``(B, H, W, 3)`` result
-    once the events have fired."""
+    the CPU), the buffers that must live until the copies that read them
+    have run (the host's staging, the card's outputs), and ``finish``,
+    which gives the ``(B, H, W, 3)`` result once the events have fired."""
     done: tuple
     keep: tuple
     finish: Callable[[], np.ndarray]
@@ -166,41 +178,60 @@ def _dispatch_sharded_chain(images: np.ndarray, cols: tuple[str, ...],
                   functools.partial(_crop_blocks, outs, layout, h, b, mesh))
 
 
-def _upload(images: np.ndarray,
-            device: torch.device) -> tuple[torch.Tensor, tuple]:
-    """The stack as a contiguous ``(B, H, W, 3)`` tensor on ``device``, and
-    the host buffers that must live until its copy has run. On the CPU the
-    tensor is the array itself. To the card the images are copied one by
-    one into a page-locked ``(B, H, W, 3)`` buffer, each copied on to the
-    card as soon as it is there (the host's copy of image i + 1 overlaps
-    the card's copy of image i). The host's copies are ``Tensor.copy_``,
-    which splits a copy over the intra-op threads, where a NumPy copy takes
-    one core (on the H100's host 17-24 GB/s against 4-6, and 6-8 for one
-    pageable upload of the stack; a whole-stack page-locked copy, then one
-    upload, took 12.05 ms a stack of 8 where this loop took 7.43;
-    ``benchmarks/h100/bake_lab.py``)."""
-    if device.type != "cuda":
-        return torch.from_numpy(np.ascontiguousarray(images)), ()
-    with tracing.span("pin_alloc"):
-        staging = torch.empty(images.shape, dtype=torch.uint8,
-                              pin_memory=True)
-    with tracing.span("alloc"):
-        raw = torch.empty(images.shape, dtype=torch.uint8, device=device)
-    for i, image in enumerate(images):
-        staging[i].copy_(torch.from_numpy(np.ascontiguousarray(image)))
-        raw[i].copy_(staging[i], non_blocking=True)
-    return raw, (staging,)
+def chunks(shape: tuple) -> tuple[tuple[int, int], ...]:
+    """The ``(start, stop)`` image ranges, in order, that a ``(B, H, W,
+    3)`` stack of ``shape`` runs in on the card: chunks of the fewest whole
+    images whose bytes reach ``CHUNK_BYTES``, the last one shorter where
+    they do not divide B. A stack under the floor is one chunk."""
+    b, h, w, c = shape
+    per = max(1, -(-CHUNK_BYTES // (h * w * c)))
+    return tuple((i, min(i + per, b)) for i in range(0, b, per))
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream that copies a batch's chunks back from ``device``: one a
+    device, so a chunk's copy back runs on the card's second copy engine
+    beside the next chunk's upload on the current stream."""
+    return torch.cuda.Stream(device)
+
+
+def _bake(stack: torch.Tensor, layout: PlanarLayout | None) -> torch.Tensor:
+    return stack if layout is None else bake_stack(stack, layout)
+
+
+def _run(stack: torch.Tensor, layout: PlanarLayout | None,
+         op) -> torch.Tensor:
+    """``op`` on a baked stack, cropped to ``(b, H, W, 3)`` on its
+    device."""
+    out = op(stack)
+    if layout is None:
+        return out
+    with tracing.span("crop"):
+        return crop_stack(out, layout)
 
 
 def _dispatch_batch(images: np.ndarray, csv_column, device) -> _Token:
     """Queue one batch; returns a token for ``_fetch_batch``. On the card
-    everything after the host's copies into pinned memory is asynchronous:
-    the copies in, the layout bake, the other launches, the crop, and the
-    copy out of the ``(B, H, W, 3)`` result into pinned memory, so the
-    caller can fetch and encode the previous batch meanwhile.
-    ``csv_column`` is one of ``COLUMNS`` or a list of columns, a chain.
-    ``device`` is a ``torch.device``, or a ``Mesh`` to shard a chain or
-    the pipeline over."""
+    the stack runs in ``chunks``, each uploaded, baked, run, cropped and
+    copied back before the next is staged: the host copies the chunk's
+    images one by one into one page-locked ``(B, H, W, 3)`` staging stack,
+    each copied on to the card as soon as it is there (the host's copy of
+    image i + 1 overlaps the card's copy of image i); the chunk's launches
+    follow on the current stream, and its copy back into one page-locked
+    ``(B, H, W, 3)`` result waits for them on the device's copy stream, so
+    it runs while the host stages the next chunk. Everything after the
+    host's copies is asynchronous, so the caller can fetch and encode the
+    previous batch meanwhile. The host's copies are ``Tensor.copy_``,
+    which splits a copy over the intra-op threads, where a NumPy copy takes
+    one core (on the H100's host 17-24 GB/s against 4-6, and 6-8 for one
+    pageable upload of the stack; a whole-stack page-locked copy, then one
+    upload, took 12.05 ms a stack of 8 where this loop took 7.43;
+    ``benchmarks/h100/bake_lab.py``). On the CPU the stack is the array
+    itself, one chunk. ``csv_column`` is one of ``COLUMNS`` or a list of
+    columns, a chain. ``device`` is a ``torch.device``, or a ``Mesh`` to
+    shard a chain or the pipeline over. The port's counter
+    ``batch_chunks`` counts the chunks."""
     _check_stack(images)
     if isinstance(device, Mesh):
         if csv_column == "Fused-Pipeline":
@@ -208,11 +239,13 @@ def _dispatch_batch(images: np.ndarray, csv_column, device) -> _Token:
         if not isinstance(csv_column, (list, tuple)):
             raise ValueError("--shards applies to chain/pipeline ops only")
         return _dispatch_sharded_chain(images, tuple(csv_column), device)
-    b, h, w, _ = images.shape
+    _, h, w, _ = images.shape
     if isinstance(csv_column, (list, tuple)):
         cols = tuple(csv_column)
         layout = make_layout(h, w, pad=max(2, *chain.check_chain(cols)))
-        op = _batched_chain(layout, cols, b)
+
+        def op(stack):
+            return _batched_chain(layout, cols, len(stack))(stack)
     elif csv_column == "Fused-Pipeline":
         layout, op = make_layout(h, w), fused_pipeline
     elif csv_column in COLUMNS:
@@ -220,27 +253,53 @@ def _dispatch_batch(images: np.ndarray, csv_column, device) -> _Token:
     else:
         raise ValueError(f"no batch op {csv_column!r}; one of {COLUMNS} "
                          f"or a list of them")
-    with tracing.span("bake"):
-        stack, keep = _upload(images, device)
-        if layout is not None:
-            stack = bake_stack(stack, layout)
-    outs = op(stack)
-    if layout is not None:
-        with tracing.span("crop"):
-            outs = crop_stack(outs, layout)
-    done = ()
-    if device.type == "cuda":
-        (outs,), done = _download((outs,), (device,))
-    return _Token(done, keep, outs.numpy)
+    if device.type != "cuda":
+        tracing.count("batch_chunks")
+        with tracing.span("bake"):
+            stack = _bake(torch.from_numpy(np.ascontiguousarray(images)),
+                          layout)
+        return _Token((), (), _run(stack, layout, op).numpy)
+    with tracing.span("pin_alloc"):
+        staging = torch.empty(images.shape, dtype=torch.uint8,
+                              pin_memory=True)
+        result = torch.empty(images.shape, dtype=torch.uint8,
+                             pin_memory=True)
+    with tracing.span("alloc"):
+        raw = torch.empty(images.shape, dtype=torch.uint8, device=device)
+    compute, copier = torch.cuda.current_stream(device), _copy_stream(device)
+    bounds = chunks(images.shape)
+    tracing.count("batch_chunks", len(bounds))
+    outs = []
+    for start, stop in bounds:
+        with tracing.span("bake"):
+            for i in range(start, stop):
+                staging[i].copy_(torch.from_numpy(
+                    np.ascontiguousarray(images[i])))
+                raw[i].copy_(staging[i], non_blocking=True)
+            stack = _bake(raw[start:stop], layout)
+        # Kept in the token until the copy stream has read it.
+        outs.append(_run(stack, layout, op))
+        copier.wait_stream(compute)
+        # set_stream, not the stream context manager: 2.9 µs against 17.5
+        # on the H100's host.
+        torch.cuda.set_stream(copier)
+        try:
+            result[start:stop].copy_(outs[-1], non_blocking=True)
+        finally:
+            torch.cuda.set_stream(compute)
+    return _Token((copier.record_event(),), (staging, *outs), result.numpy)
 
 
 def _fetch_batch(token: _Token) -> np.ndarray:
     """Wait for a dispatched batch; the uint8 (B, H, W, 3) result. From
     the card that is the token's pinned result itself, no copy: an array
     in page-locked memory from the host allocator's cache, which takes the
-    buffer back once the array is dropped."""
-    for event in token.done:
-        event.synchronize()
+    buffer back once the array is dropped. The wait is the port's
+    ``fetch`` span: the copy back that nothing hid."""
+    if token.done:
+        with tracing.span("fetch"):
+            for event in token.done:
+                event.synchronize()
     return token.finish()
 
 

@@ -120,8 +120,9 @@ def test_process_batch_on_card_bakes_on_the_card(cols):
 @pytest.mark.cuda
 def test_process_batch_on_card_stages_a_library_column(monkeypatch):
     # A single op takes the pipeline's upload: the page-locked staging
-    # stack inside the bake span, no pin_memory() of the whole stack, and
-    # no bake or crop on the card.
+    # stack and result allocated once, the staging copies inside the bake
+    # span, no pin_memory() of the whole stack, no bake or crop on the
+    # card, and the wait for the copy back in the fetch span.
     card()
     images, _ = bake_case(3, 37, 53, 2, seed=6)
     opened, open_now = [], []
@@ -145,8 +146,8 @@ def test_process_batch_on_card_stages_a_library_column(monkeypatch):
     kernels.reset_launches()
     got = batch.process_batch(images, "Grayscale")
     assert kernels.LAUNCHES == {}
-    assert opened == ["batch", "batch/bake", "batch/bake/pin_alloc",
-                      "batch/bake/alloc", "batch/pin_alloc"]
+    assert opened == ["batch", "batch/pin_alloc", "batch/alloc",
+                      "batch/bake", "batch/fetch"]
     assert torch.from_numpy(got).is_pinned()
     np.testing.assert_array_equal(
         got, batch.process_batch(images, "Grayscale", device="cpu"))

@@ -1,16 +1,32 @@
 """The port's batch tool (models/batch.py) against the oracle and the JAX
-package's batch tool, on the CPU. Tolerance 0: the uint8 model is
-bit-exact by spec."""
+package's batch tool, on the CPU, and its chunk rule; the card tests
+(``-m cuda``) against the oracle. Tolerance 0: the uint8 model is
+bit-exact by spec. Without JAX (the card's machine) the card tests still
+run:
+
+    python -m pytest --noconftest tests/test_torch_batch.py -m cuda
+"""
 
 import numpy as np
 import pytest
 import torch
 
-from dip_benchmark_tpu.models import batch as jax_batch
 from dip_benchmark_tpu_torch import oracle
-from dip_benchmark_tpu_torch.models import batch
+from dip_benchmark_tpu_torch.models import batch, chain
 from dip_benchmark_tpu_torch.ops import kernels
+from dip_benchmark_tpu_torch.runtime import tracing
 from dip_benchmark_tpu_torch.utils.image import load_image, save_image
+
+try:
+    from dip_benchmark_tpu.models import batch as jax_batch
+except ImportError:   # a machine with a card and no JAX runs the card tests
+    jax_batch = None
+
+needs_jax = pytest.mark.skipif(jax_batch is None,
+                               reason="compares with the JAX package, "
+                                      "which is not installed")
+FUNDUS = (2336, 3504, 3)
+C3 = ["Convolution-1x5+5x1", "Erosion-3x3-Cross"]
 
 
 def stack(shape, seed=0, n=3) -> np.ndarray:
@@ -24,6 +40,7 @@ def write_dir(path, images: dict) -> None:
         save_image(str(path / name), img)
 
 
+@needs_jax
 def test_process_batch_pipeline_matches_oracle_and_jax():
     imgs = stack((24, 40, 3), seed=1)
     kernels.reset_launches()
@@ -43,6 +60,53 @@ def test_process_batch_single_op_matches_oracle(col):
     got = batch.process_batch(imgs, col, device="cpu")
     for b in range(2):
         np.testing.assert_array_equal(got[b], oracle.IMAGE_OPS[col](imgs[b]))
+
+
+# Image bytes just under and just over the chunk floor: rows of one pixel.
+UNDER = (1, (batch.CHUNK_BYTES - 1) // 3, 3)
+OVER = (1, batch.CHUNK_BYTES // 3 + 1, 3)
+
+
+@pytest.mark.parametrize("shape, per", [
+    ((1,) + FUNDUS, 2), ((3,) + FUNDUS, 2), ((8,) + FUNDUS, 2),
+    ((3, 37, 53, 3), 3), ((5,) + UNDER, 2), ((5,) + OVER, 1),
+    ((1,) + UNDER, 1),
+])
+def test_chunks_are_the_fewest_images_that_reach_the_floor(shape, per):
+    got = batch.chunks(shape)
+    assert got == tuple((i, min(i + per, shape[0]))
+                        for i in range(0, shape[0], per))
+    assert all(np.prod(shape[1:]) * (stop - start) >= batch.CHUNK_BYTES
+               for start, stop in got[:-1])
+    assert all(np.prod(shape[1:]) * (stop - start - 1) < batch.CHUNK_BYTES
+               for start, stop in got)
+
+
+@pytest.mark.parametrize("shape", [
+    (1,) + FUNDUS, (7,) + FUNDUS, (3, 37, 53, 3), (9,) + UNDER,
+    (4,) + OVER, (11, 1024, 1024, 3), (6, 1500, 1500, 3),
+])
+def test_chunks_cover_every_image_once_in_order(shape):
+    got = batch.chunks(shape)
+    assert [i for start, stop in got for i in range(start, stop)] == list(
+        range(shape[0]))
+    assert all(stop > start for start, stop in got)
+
+
+def test_a_cpu_stack_is_one_chunk_whatever_its_size(monkeypatch):
+    imgs = stack((16, 24, 3), seed=9, n=4)
+    want = batch.process_batch(imgs, device="cpu")
+    monkeypatch.setattr(batch, "CHUNK_BYTES", 1)
+    assert len(batch.chunks(imgs.shape)) == 4
+    tracing.enable()
+    try:
+        got = batch.process_batch(imgs, device="cpu")
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+    assert snap.counters["batch_chunks"] == 1
+    assert "fetch" not in snap.spans
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("images", [
@@ -121,6 +185,7 @@ def test_process_directory_overlaps_dispatch_and_fetch(tmp_path,
                       ("dispatch", 1), ("fetch",), ("fetch",)]
 
 
+@needs_jax
 def test_main_matches_the_jax_batch_tool(tmp_path, capsys):
     imgs = {f"im{i}.png": im for i, im in
             enumerate(stack((20, 28, 3), seed=5))}
@@ -187,3 +252,42 @@ def test_process_batch_on_card(col):
                                               else 0)
     for b in range(3):
         np.testing.assert_array_equal(got[b], oracle.IMAGE_OPS[col](imgs[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", ["Fused-Pipeline", C3],
+                         ids=["pipeline", "C3"])
+def test_process_batch_on_card_chunks_large_stacks(cols):
+    # Three fundus-sized images are two chunks, of two images and one: a
+    # bake, a kernel and a crop launch each, each chunk's copy back on the
+    # copy stream.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    if cols == "Fused-Pipeline":
+        kernel, want = "pipeline_u8", oracle.fused_pipeline
+    else:
+        kernel, want = "chain_u8", chain.chain_row_parts(cols)[2]
+    first, second = stack(FUNDUS, seed=10), stack(FUNDUS, seed=11)
+    assert batch.chunks(first.shape) == ((0, 2), (2, 3))
+    tracing.enable()
+    kernels.reset_launches()
+    try:
+        got = batch.process_batch(first, cols)
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+    assert kernels.LAUNCHES == {"bake_u8": 2, kernel: 2, "crop_u8": 2}
+    assert snap.counters["batch_chunks"] == 2
+    assert snap.spans["fetch"][0] == 1
+    assert torch.from_numpy(got).is_pinned()
+    expected = [[want(im) for im in s] for s in (first, second)]
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], expected[0][i])
+    # Two stacks in flight at once: each chunk's card output lives until
+    # the copy stream has read it.
+    tokens = [batch._dispatch_batch(s, cols, torch.device("cuda"))
+              for s in (first, second)]
+    for token, want_stack in zip(tokens, expected):
+        out = batch._fetch_batch(token)
+        for i in range(3):
+            np.testing.assert_array_equal(out[i], want_stack[i])

@@ -236,7 +236,7 @@ def test_a_cpu_batch_records_batch_bake_and_crop():
     out = batch.process_batch(stack, "Fused-Pipeline", device=CPU)
     snap = tracing.snapshot()
     assert out.shape == stack.shape
-    assert snap.counters["images"] == 3
+    assert snap.counters["images"] == 3 and snap.counters["batch_chunks"] == 1
     assert {k: v[0] for k, v in snap.spans.items()} == {
         "batch": 1, "bake": 1, "crop": 1}
     calls, total, self_ns = snap.spans["batch"]
@@ -288,13 +288,16 @@ SNAP = tracing.Snapshot(
            "batch": (2, 3_000_000_000, 100_000_000),
            "bake": (2, 2_000_000_000, 1_600_000_000),
            "pin_alloc": (4, 400_000_000, 400_000_000),
-           "crop": (2, 200_000_000, 200_000_000)},
-    counters={"images": 16, "card_bakes": 16, "card_crops": 12})
+           "crop": (2, 200_000_000, 200_000_000),
+           "fetch": (2, 80_000_000, 80_000_000)},
+    counters={"images": 16, "card_bakes": 16, "card_crops": 12,
+              "batch_chunks": 16})
 WANT = {"wrapper_us.sync": 12.0, "alloc_us.sync": 5.0, "launch_us.sync": 8.0,
         "launches_per_round.sync": 2.0, "sync_wait_us.sync": 21.0,
         "bake_ms.batch": 100.0, "pin_alloc_ms.batch": 25.0,
         "crop_ms.batch": 12.5, "card_bake_share.batch": 100.0,
-        "card_crop_share.batch": 75.0}
+        "card_crop_share.batch": 75.0, "chunks_per_batch.batch": 8.0,
+        "fetch_wait_ms.batch": 5.0}
 
 
 @pytest.mark.parametrize("metric", sorted(WANT))
